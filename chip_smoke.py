@@ -1,0 +1,594 @@
+"""Drive the PyTorch port's YOLOv5s serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
+2. build: every kernel of ``yoloseries_tpu_torch/csrc`` with nvcc for
+   sm_90a, timed, with the ``-Xptxas -v`` register and shared-memory use;
+3. kernels vs their plain PyTorch twins on the card, index for index
+   (exact ties, zero-area boxes, all-dead rows, class offset, shuffled
+   input), with ``torch.cuda.synchronize()`` after each launch;
+4. model: yolov5s at nc=80 from a seeded generator (7,235,389 parameters),
+   640x640 B=1 f32 on the card against the same module on the CPU;
+5. serving: the port ``Evaluator`` on seeded uint8 batches (serving config
+   at B=8 and B=256, protocol config at B=64, TTA at B=2) and
+   ``detect_batch`` once; each path's kernel launch counter is zeroed
+   before the path and must have grown after it; img/s and peak memory;
+6. kernel timings (CUDA events) at the candidates the serving path produced,
+   beside the plain twins, the bytes/operations bound and the dependent-chain
+   bound (steps these inputs need x the measured time of one block-wide
+   step, ``csrc/step_probe.cu``);
+7. a torch.profiler breakdown of one serving and one protocol batch:
+   device-busy and idle share, the heaviest kernels, the NMS kernels' share;
+then one ``{"kernels": [...]}`` line.
+
+The last lines are the card's ``nvidia-smi`` name and power limit and then
+``{"ok": true, "device": {...}}``. TF32 is off throughout (cuDNN and
+matmul), so every comparison and time is full f32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+MAX_KEEP = 300
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
+IOU_OPS = 14  # min/max/sub/clamp/mul/add/div/compare per IoU evaluation
+MODEL_TOL = 1e-3  # f32 raw maps, card vs CPU: summation order over ~60 convs
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def fail(msg):
+    log(f"FAILED: {msg}")
+    sys.exit(1)
+
+
+def run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+# --------------------------------------------------------------- inputs
+
+def candidates(seed, b, k, n_cls=8, shuffle=False):
+    """Clustered candidate boxes with the class offset already added, exact
+    score ties, zero-area boxes, dead tails and (for b > 1) an all-dead row."""
+    rng = np.random.default_rng(seed)
+    hot = rng.uniform(0, 600, (b, 32, 2))
+    xy = hot[np.arange(b)[:, None], rng.integers(0, 32, (b, k))] + rng.normal(0, 15, (b, k, 2))
+    wh = rng.uniform(5, 90, (b, k, 2))
+    wh[:, ::37] = 0.0
+    cls = rng.integers(0, n_cls, (b, k)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes = boxes + (cls * np.float32(4096.0))[..., None]
+    scores = np.sort(rng.uniform(0.01, 1, (b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    scores[:, 5:9] = scores[:, 5:6]
+    for r in range(b):
+        scores[r, rng.integers(k // 4, k + 1):] = 0.0
+    if b > 1:
+        scores[-1] = 0.0
+    if shuffle:
+        order = rng.permutation(k)
+        boxes, scores = boxes[:, order], scores[:, order]
+    dev = torch.device("cuda")
+    return (torch.from_numpy(np.ascontiguousarray(boxes)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(scores)).to(dev))
+
+
+def cuda_ms(fn, iters, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------- phases
+
+def phase_environment():
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    log(f"nvidia-smi: {smi}")
+    from yoloseries_tpu_torch.kernels._build import _nvcc
+
+    log(run([_nvcc(), "--version"]).splitlines()[-1])
+    return smi.splitlines()[0]
+
+
+def phase_build():
+    from yoloseries_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"build: {time.perf_counter() - t0:.3f} s -> {_build.BUILD_DIR}")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            log("  ptxas:", line.strip().removeprefix("ptxas info    : "))
+
+
+def phase_kernels_vs_twins():
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    cases = {
+        "nms_greedy": (g.nms_greedy, g.greedy_nms, [
+            (256, 512, 0.45, False), (8, 4096, 0.65, True), (3, 1000, 0.5, True)]),
+        "matrix_nms": (m.matrix_nms, m.matrix_nms_plain, [
+            (b, k, 0.45, shuffle) for b in (1, 8, 16) for k in (512, 1024)
+            for shuffle in (False, True)]),
+        "matrix_nms_chunked": (m.matrix_nms_chunked, g.greedy_nms, [
+            (2, 12288, 0.65, True)]),
+    }
+    mismatches = {}
+    for name, (kernel, twin, shapes) in cases.items():
+        bad = 0
+        for i, (b, k, thr, shuffle) in enumerate(shapes):
+            boxes, scores = candidates(1000 * i + k, b, k, shuffle=shuffle)
+            want = twin(boxes, scores, thr, MAX_KEEP)
+            torch.cuda.synchronize()
+            got = kernel(boxes, scores, thr, MAX_KEEP)
+            torch.cuda.synchronize()
+            n = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+            bad += n
+            log(f"  {name} B={b} K={k} thr={thr} shuffled={shuffle}: "
+                f"{int(want[1].sum())} keepers, {n} mismatches")
+        mismatches[name] = bad
+    if any(mismatches.values()):
+        fail(f"kernel/twin mismatches {mismatches}")
+    return mismatches
+
+
+def widen_head(model, img):
+    """Random weights put every score near the detect prior; scale each
+    detect conv (bias 0) so its raw map has std 1.5 on ``img``, which
+    spreads scores and classes the way a trained head does."""
+    with torch.no_grad():
+        names = ("detect_small", "detect_mid", "detect_large")
+        for name in names:
+            getattr(model.detect, name).bias.zero_()
+        for name, raw in zip(names, model(img)):
+            getattr(model.detect, name).weight.mul_(1.5 / raw.std())
+
+
+def phase_model():
+    from yoloseries_tpu_torch.models import create_model
+
+    model = create_model("yolov5s", num_class=80, device="cpu", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 7_235_389:
+        fail(f"yolov5s has {n_params} parameters, want 7,235,389")
+    gen = torch.Generator().manual_seed(0)
+    calib = torch.randint(0, 256, (2, 3, 320, 320), generator=gen).float() / 255
+    widen_head(model, calib)
+    x = torch.randint(0, 256, (1, 3, 640, 640), generator=gen).float() / 255
+    with torch.no_grad():
+        ref = model(x)
+        gpu = create_model("yolov5s", num_class=80, device="cpu", seed=0)
+        gpu.load_state_dict(model.state_dict())
+        gpu = gpu.cuda()
+        got = gpu(x.cuda())
+        torch.cuda.synchronize()
+    err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+    log(f"model: yolov5s {n_params} params; 640x640 B=1 f32 card vs CPU "
+        f"max abs diff {err:.3e} (tolerance {MODEL_TOL})")
+    if not err <= MODEL_TOL:
+        fail("card and CPU raw maps disagree")
+    return model
+
+
+@contextlib.contextmanager
+def record_nms_inputs():
+    """Record (boxes with class offset, scores, thr) of every NMS wrapper
+    call that ``nms_candidates`` makes, by kernel name."""
+    from yoloseries_tpu_torch.ops import nms
+
+    rec = {"nms_greedy": [], "matrix_nms": [], "matrix_nms_chunked": []}
+    saved = {name: getattr(nms, name) for name in rec}
+
+    def recorder(name):
+        def call(boxes, scores, thr, max_keep):
+            rec[name].append((boxes.clone(), scores.clone(), thr))
+            return saved[name](boxes, scores, thr, max_keep)
+        return call
+
+    for name in rec:
+        setattr(nms, name, recorder(name))
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(nms, name, fn)
+
+
+def check_detections(out, b):
+    if tuple(out.shape) != (b, MAX_KEEP, 6):
+        fail(f"detections shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        fail("non-finite detections")
+    conf = out[..., 4]
+    if not ((conf >= 0) & (conf <= 1)).all() or not (conf > 0).any():
+        fail("detections: conf outside [0, 1] or no detection at all")
+
+
+def matched_share(got, ref):
+    """Share of the reference detections found in ``got`` (same image and
+    class, conf within 1e-4, box within 1e-2 px)."""
+    found = total = 0
+    for g, r in zip(got, ref):
+        g, r = g[g[:, 4] > 0], r[r[:, 4] > 0]
+        free = np.ones(len(g), bool)
+        for row in r:
+            total += 1
+            close = (free & (g[:, 5] == row[5]) & (np.abs(g[:, 4] - row[4]) <= 1e-4)
+                     & (np.abs(g[:, :4] - row[:4]).max(axis=1) <= 1e-2))
+            if close.any():
+                found += 1
+                free[np.argmax(close)] = False
+    return found / max(total, 1), total
+
+
+def phase_serving(model, card):
+    from yoloseries_tpu_torch.cli.detect import detect_batch
+    from yoloseries_tpu_torch.evaluation import (
+        EvalConfig,
+        Evaluator,
+        yolov5_decode_fn,
+        yolov5_select_fn,
+    )
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+    from yoloseries_tpu_torch.ops.letterbox import letterbox_image
+
+    counters = {"nms_greedy": g.nms_greedy, "matrix_nms": m.matrix_nms,
+                "matrix_nms_chunked": m.matrix_nms_chunked}
+    serving = EvalConfig(conf_threshold=0.25, cls_threshold=0.25, iou_threshold=0.45,
+                         num_candidates=512)
+    protocol = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
+                          num_candidates=4096)
+    tta = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
+                     num_candidates=4096, use_tta=True)
+    paths = [("serving B=8", serving, 8, "matrix_nms"),
+             ("serving B=256", serving, 256, "nms_greedy"),
+             ("protocol B=64", protocol, 64, "nms_greedy"),
+             ("tta B=2", tta, 2, "matrix_nms_chunked")]
+    rng = np.random.default_rng(0)
+    launches = {k: 0 for k in counters}
+    captured = {}
+    for label, cfg, b, kernel in paths:
+        ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device="cuda")
+        img = rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)
+        ev(img)  # warm-up (cuDNN autotune, allocator)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = ev(img)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = {k: c.launches for k, c in counters.items()}
+        if counts[kernel] == 0:
+            fail(f"{label}: {kernel} was not launched ({counts})")
+        for k, n in counts.items():
+            launches[k] += n
+        check_detections(out, b)
+        best = min(times)
+        log(f"{label}: {b / best:.1f} img/s (best of 3, {best * 1e3:.1f} ms/batch), "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{int((out[..., 4] > 0).sum())} detections, launches {counts} [{card}]")
+        with record_nms_inputs() as rec:  # the NMS inputs of this path
+            ev(img)
+        captured[label] = rec[kernel][0]
+
+    # agreement with the CPU reference (plain twins) on a small input
+    small = rng.integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
+    ev_gpu = Evaluator(model, yolov5_decode_fn(), serving, yolov5_select_fn(serving),
+                       device="cuda")
+    got = ev_gpu(small).cpu().numpy()
+    cpu_model = type(model)(80)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ev_cpu = Evaluator(cpu_model, yolov5_decode_fn(), serving, yolov5_select_fn(serving),
+                       device="cpu")
+    ref = ev_cpu(small).numpy()
+    share, total = matched_share(got, ref)
+    log(f"serving B=2 card vs CPU reference: {share * 100:.2f}% of {total} detections "
+        "matched (class equal, conf 1e-4, box 1e-2 px; need >= 98%)")
+    if share < 0.98:
+        fail("card detections disagree with the CPU reference")
+
+    # detect_batch on letterboxed images of assorted sizes
+    for c in counters.values():
+        c.launches = 0
+    batch = np.zeros((8, 640, 640, 3), np.uint8)
+    infos = np.ones((8, 5), np.float32)
+    for i in range(8):
+        h, w = rng.integers(200, 1200, 2)
+        raw = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        batch[i], info = letterbox_image(raw, 640, stride=32)
+        infos[i] = info.as_array()
+    dets = detect_batch(ev_gpu, batch, infos)
+    torch.cuda.synchronize()
+    if len(dets) != 8 or counters["matrix_nms"].launches == 0:
+        fail("detect_batch did not run through matrix_nms")
+    launches["matrix_nms"] += counters["matrix_nms"].launches
+    log(f"detect_batch B=8: {sum(0 if d is None else len(d) for d in dets)} detections")
+    return launches, captured
+
+
+def bound_ms(boxes, ious):
+    """Least time on the card: the larger of bytes over the memory rate
+    (boxes, scores read once; keep_idx, keep_valid written once) and f32
+    operations over the f32 rate. Returns (ms, "bytes" | "operations")."""
+    b, k = boxes.shape[:2]
+    n_bytes = b * k * (16 + 4) + b * MAX_KEEP * (4 + 1)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ious * IOU_OPS / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_us(threads, lo=2000, hi=20000):
+    """Measured time of one block-wide dependent step (publish to shared
+    memory, one barrier, read a neighbour) in a block of ``threads``:
+    ``csrc/step_probe.cu``, the launch cost cancelled by a difference."""
+    from yoloseries_tpu_torch.kernels import _build
+
+    probe = _build.load().yst_step_probe
+    out = torch.empty(1024, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(steps):
+        _build.check(probe(steps, threads, out.data_ptr(), stream), "yst_step_probe")
+
+    t_lo = cuda_ms(lambda: launch(lo), iters=10)
+    t_hi = cuda_ms(lambda: launch(hi), iters=10)
+    return (t_hi - t_lo) * 1e3 / (hi - lo)
+
+
+def fixpoint_rounds(boxes, scores, thr):
+    """(B,) confirm/kill rounds the exact-greedy fixpoint needs on these
+    inputs (the loop of ``matrix_nms_plain``, counted)."""
+    from yoloseries_tpu_torch.ops.iou import pairwise_iou
+
+    k = scores.shape[1]
+    ids = torch.arange(k, device=scores.device)
+    s_j, s_i = scores[:, :, None], scores[:, None, :]
+    pri = (s_j > s_i) | ((s_j == s_i) & (ids[:, None] < ids[None, :]))
+    sup = (pairwise_iou(boxes, boxes) >= thr) & pri
+    und = scores > 0.0
+    kept = torch.zeros_like(und)
+    rounds = torch.zeros(scores.shape[0], dtype=torch.int64, device=scores.device)
+    while bool(und.any()):
+        rounds += und.any(dim=1)
+        blocked = (sup & und[:, :, None]).any(dim=1)
+        kept = kept | (und & ~blocked)
+        killed = (sup & kept[:, :, None]).any(dim=1)
+        und = und & blocked & ~killed
+    return rounds
+
+
+def strip_inputs(boxes, scores, thr):
+    """(boxes, scores) of every strip the chunked driver hands the matrix
+    kernel, after the carried-keeper kills."""
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    inner, strips = m.matrix_nms, []
+
+    def record(b, s, t, keep):
+        strips.append((b.clone(), s.clone()))
+        return inner(b, s, t, keep)
+
+    record.launches = 0  # the wrapper counts on whatever ``matrix_nms`` names
+    m.matrix_nms = record
+    try:
+        m.matrix_nms_chunked(boxes, scores, thr, MAX_KEEP)
+    finally:
+        m.matrix_nms = inner
+    return strips
+
+
+def chain_steps(name, boxes, scores, thr, keepers):
+    """Dependent block-wide steps these inputs need, and the block size the
+    kernel runs them in. Images run side by side (one block each), so the
+    longest image sets the chain. B1 decides one keeper per step; B2 runs
+    two dependent exchanges per fixpoint round (confirm publishes the kept
+    set, kill the undecided set); B3 runs its strips one after another."""
+    if name == "nms_greedy":
+        return int(keepers.max()), min(1024, -(-scores.shape[1] // 32) * 32)
+    if name == "matrix_nms":
+        return 2 * int(fixpoint_rounds(boxes, scores, thr).max()), -(-scores.shape[1] // 32) * 32
+    steps = sum(2 * int(fixpoint_rounds(b, s, thr).max())
+                for b, s in strip_inputs(boxes, scores, thr))
+    return steps, 1024
+
+
+def phase_timings(captured, launches, mismatches, card):
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    specs = [
+        ("nms_greedy", "serving B=256", g.nms_greedy, g.greedy_nms,
+         "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
+        ("nms_greedy", "protocol B=64", g.nms_greedy, g.greedy_nms,
+         "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
+        ("matrix_nms", "serving B=8", m.matrix_nms, m.matrix_nms_plain,
+         "yoloseries_tpu_torch/csrc/nms_matrix.cu", "yoloseries_tpu/kernels/nms_matrix.py:151"),
+        ("matrix_nms_chunked", "tta B=2", m.matrix_nms_chunked, g.greedy_nms,
+         "yoloseries_tpu_torch/kernels/nms_matrix.py",
+         "yoloseries_tpu/kernels/nms_matrix.py:194"),
+    ]
+    counters = {"nms_greedy": g.nms_greedy, "matrix_nms": m.matrix_nms,
+                "matrix_nms_chunked": m.matrix_nms_chunked}
+    saved = {k: f.launches for k, f in counters.items()}
+    step = {}  # block size -> us per dependent step
+    rows = {}
+    for name, label, kernel, twin, source, replaces in specs:
+        boxes, scores, thr = captured[label]
+        b, k = scores.shape
+        ki, kv = kernel(boxes, scores, thr, MAX_KEEP)
+        want = twin(boxes, scores, thr, MAX_KEEP)
+        torch.cuda.synchronize()
+        err = float(max((ki - want[0]).abs().max(), (kv != want[1]).sum()))
+        ms = cuda_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP), iters=20)
+        plain = cuda_ms(lambda: twin(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
+        keepers = kv.sum(dim=1)
+        # exact greedy needs one IoU row of K per keeper, whatever the kernel
+        # computes beyond that (B2 builds the whole K x K relation)
+        bound, by = bound_ms(boxes, int(keepers.sum()) * k)
+        steps, threads = chain_steps(name, boxes, scores, thr, keepers)
+        if threads not in step:
+            step[threads] = step_us(threads)
+            log(f"  one block-wide dependent step (csrc/step_probe.cu) at {threads} "
+                f"threads: {step[threads]:.4f} us [{card}]")
+        chain = steps * step[threads] * 1e-3
+        binding = "dependent steps" if chain > bound else by
+        row = {"shape": f"{label}: B={b} K={k} thr={thr}", "max_abs_err": err,
+               "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+               "chain_ms": chain, "chain_steps": steps, "step_us": step[threads],
+               "binding": binding}
+        if name in rows:  # a second shape of the same kernel on the path
+            rows[name].setdefault("other_shapes", []).append(row)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        else:
+            rows[name] = {"name": name, "route": "cuda", "source": source,
+                          "replaces": replaces, "launches": launches[name],
+                          "mismatches": mismatches[name], **row, "library_ms": None}
+        log(f"  {name} [{label}] B={b} K={k}: kernel {ms:.4f} ms, plain twin {plain:.3f} ms, "
+            f"bound {bound:.6f} ms ({by}), chain {chain:.6f} ms ({steps} steps x "
+            f"{step[threads]:.4f} us), binding: {binding}, mean keepers "
+            f"{float(keepers.float().mean()):.1f}, no library yardstick [{card}]")
+    for k, f in counters.items():
+        f.launches = saved[k]  # the timing launches are not the path's
+    rows = list(rows.values())
+    if any(r["max_abs_err"] for r in rows):
+        fail("kernel/twin disagreement at the serving path's candidates")
+    return rows
+
+
+KERNEL_GROUPS = (  # (group, substrings of the device event name), first match wins
+    ("NMS kernels", ("nms_kernel",)),
+    ("H2D copy", ("Memcpy HtoD",)),
+    ("convolution", ("conv", "fprop", "xmma", "implicit_gemm", "cudnn", "gemm")),
+    ("sort / top-k", ("sort", "Sort", "radix", "topk")),
+    ("elementwise", ("elementwise", "reduce_kernel", "Reduce")),
+)
+
+
+def _device_events(prof):
+    """(microseconds, name) of every device-side event (kernels, copies),
+    each counted once."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA or "Activity Buffer" in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out.append((float(us), e.key))
+    return sorted(out, reverse=True)
+
+
+def phase_profile(model, card):
+    """Where one batch's device time goes (torch.profiler): device-busy
+    share of the wall time and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloseries_tpu_torch.evaluation import (
+        EvalConfig,
+        Evaluator,
+        yolov5_decode_fn,
+        yolov5_select_fn,
+    )
+
+    rng = np.random.default_rng(1)
+    for label, b, cfg in (
+        ("serving B=256", 256, EvalConfig(conf_threshold=0.25, cls_threshold=0.25,
+                                          iou_threshold=0.45, num_candidates=512)),
+        ("protocol B=64", 64, EvalConfig(conf_threshold=0.001, cls_threshold=0.001,
+                                         iou_threshold=0.65, num_candidates=4096)),
+    ):
+        ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device="cuda")
+        img = rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)
+        ev(img)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev(img)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = _device_events(prof)
+        busy = sum(t for t, _ in kernels)
+        if busy == 0:
+            log(f"{label}: the profiler recorded no device time (not measured)")
+            continue
+        # unclamped: a negative idle share shows that device events were
+        # counted twice
+        log(f"{label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
+            f"idle share {(1 - busy / wall_us) * 100:.1f}% [{card}]")
+        groups = {g: 0.0 for g, _ in KERNEL_GROUPS} | {"other": 0.0}
+        for t, name in kernels:
+            group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+                         "other")
+            groups[group] += t
+        log("  by group: " + ", ".join(f"{g} {t / busy * 100:.2f}%" for g, t in groups.items()))
+        for t, name in kernels[:6]:
+            log(f"  {t / busy * 100:5.1f}%  {t / 1e3:8.3f} ms  {name[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script drives the port on the card")
+    try:
+        import yoloseries_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port package is not importable ({e}); run from the repo root")
+    torch.backends.cudnn.allow_tf32 = False  # full f32 everywhere below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    t_start = time.perf_counter()
+
+    log("== 1. environment")
+    card = phase_environment()
+    log("== 2. build")
+    phase_build()
+    log("== 3. kernels vs plain twins")
+    mismatches = phase_kernels_vs_twins()
+    log("== 4. model")
+    model = phase_model().cuda().eval()
+    log("== 5. serving")
+    launches, captured = phase_serving(model, card)
+    log("== 6. kernel timings at the serving path's candidates")
+    rows = phase_timings(captured, launches, mismatches, card)
+    log("== 7. where the device time goes")
+    phase_profile(model, card)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,110 @@
+"""Port kernels on the card: each CUDA kernel against its plain twin, index
+for index, and the serving path through the kernels.
+
+Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
+card is visible (decided at run time, never at import). On a machine with a
+card and the CUDA toolkit:
+
+    python -m pytest -m gpu tests/test_torch_port_gpu.py
+
+This file imports no JAX: the card machine need not have it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yoloseries_tpu_torch.kernels import nms_greedy, nms_matrix
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def candidates(seed, b, k, n_cls=4, shuffle=True):
+    """Clustered boxes with zero-area boxes, exact ties, dead tails, an
+    all-dead row and the class offset."""
+    rng = np.random.default_rng(seed)
+    hot = rng.uniform(0, 600, (b, 24, 2))
+    xy = hot[np.arange(b)[:, None], rng.integers(0, 24, (b, k))] + rng.normal(0, 15, (b, k, 2))
+    wh = rng.uniform(5, 90, (b, k, 2))
+    wh[:, ::37] = 0.0
+    cls = rng.integers(0, n_cls, (b, k))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes = boxes + (cls.astype(np.float32) * np.float32(4096.0))[..., None]
+    scores = np.sort(rng.uniform(0.01, 1, (b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    scores[:, 5:9] = scores[:, 5:6]
+    for r in range(b):
+        scores[r, rng.integers(k // 4, k + 1):] = 0.0
+    if b > 1:
+        scores[-1] = 0.0
+    if shuffle:
+        order = rng.permutation(k)
+        boxes, scores = boxes[:, order], scores[:, order]
+    return (torch.from_numpy(np.ascontiguousarray(boxes)),
+            torch.from_numpy(np.ascontiguousarray(scores)))
+
+
+def _check(kernel, twin, dev, b, k, thr, **kw):
+    boxes, scores = candidates(b * 31 + k, b, k)
+    want = twin(boxes.to(dev), scores.to(dev), thr, 300, **kw)
+    got = kernel(boxes.to(dev), scores.to(dev), thr, 300, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+
+
+@pytest.mark.parametrize("b,k,thr", [(256, 512, 0.45), (8, 4096, 0.65), (3, 1000, 0.5)])
+def test_greedy_kernel_matches_twin(cuda, b, k, thr):
+    n = nms_greedy.nms_greedy.launches
+    _check(nms_greedy.nms_greedy, nms_greedy.greedy_nms, cuda, b, k, thr)
+    assert nms_greedy.nms_greedy.launches == n + 1
+
+
+@pytest.mark.parametrize("b,k", [(1, 512), (8, 1024), (16, 700)])
+def test_matrix_kernel_matches_twin(cuda, b, k):
+    n = nms_matrix.matrix_nms.launches
+    _check(nms_matrix.matrix_nms, nms_matrix.matrix_nms_plain, cuda, b, k, 0.45)
+    assert nms_matrix.matrix_nms.launches == n + 1
+
+
+def test_chunked_driver_matches_greedy_twin(cuda):
+    boxes, scores = candidates(5, 2, 12288)
+    want = nms_greedy.greedy_nms(boxes.to(cuda), scores.to(cuda), 0.65, 300)
+    got = nms_matrix.matrix_nms_chunked(boxes.to(cuda), scores.to(cuda), 0.65, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+def test_cuda_evaluator_matches_cpu(cuda):
+    from yoloseries_tpu_torch.evaluation import (
+        EvalConfig,
+        Evaluator,
+        yolov5_decode_fn,
+        yolov5_select_fn,
+    )
+    from yoloseries_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False  # compare in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
+                     num_candidates=1024)
+    img = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    outs = []
+    for dev in ("cpu", cuda):
+        model = create_model("yolov5s", num_class=80, device="cpu", seed=1)
+        with torch.no_grad():
+            for name in ("detect_small", "detect_mid", "detect_large"):
+                getattr(model.detect, name).bias.zero_()
+        ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=dev)
+        outs.append(ev(img).cpu())
+    assert outs[0].shape == outs[1].shape == (2, 300, 6)
+    # near-equal confs may trade slots: compare each image's sorted confs
+    conf = [np.sort(o[..., 4].numpy(), axis=1) for o in outs]
+    np.testing.assert_allclose(conf[1], conf[0], atol=1e-4)

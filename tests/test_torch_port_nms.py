@@ -1,0 +1,210 @@
+"""Port NMS (yoloseries_tpu_torch) against the JAX package's kernels.
+
+The plain twins of the CUDA kernels, and the wrappers given CPU tensors,
+must match the Pallas kernels run in interpret mode index for index: exact
+ties, zero-area boxes, all-dead rows, K not a multiple of 128, shuffled
+(unsorted) input and the class offset. ``nms_candidates`` (B, 300, 6) must
+match the JAX ``nms_candidates(use_pallas=False)`` at the serving and the
+protocol thresholds through every dispatch branch; the arithmetic is the
+same op for op, so the tolerance is exact equality.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yoloseries_tpu.kernels.nms_matrix import (
+    pallas_matrix_nms,
+    pallas_matrix_nms_chunked,
+)
+from yoloseries_tpu.kernels.nms_pallas import pallas_greedy_nms
+from yoloseries_tpu.ops.nms import nms_candidates as jax_nms_candidates
+from yoloseries_tpu.ops.nms import select_topk_candidates as jax_select_topk
+from yoloseries_tpu_torch.kernels import nms_greedy as port_greedy
+from yoloseries_tpu_torch.kernels import nms_matrix as port_matrix
+from yoloseries_tpu_torch.ops import nms as port_nms
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def make_candidates(seed, b, k, shuffle, n_cls=1):
+    """Clustered boxes with zero-area boxes, exact ties, dead tails, one
+    all-dead row when b > 1, and the class offset for n_cls > 1."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 600, (b, k, 2)).astype(np.float32)
+    hot = rng.uniform(0, 600, (b, 20, 2)).astype(np.float32)
+    pick = rng.integers(0, 20, (b, k))
+    cluster = hot[np.arange(b)[:, None], pick] + rng.normal(0, 15, (b, k, 2))
+    use_c = rng.uniform(size=(b, k)) < 0.7
+    xy = np.where(use_c[..., None], cluster, xy).astype(np.float32)
+    wh = rng.uniform(5, 90, (b, k, 2)).astype(np.float32)
+    wh[:, ::37] = 0.0  # zero-area boxes (self-IoU 0)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = np.sort(rng.uniform(0.01, 1, (b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    scores[:, 5:9] = scores[:, 5:6]  # exact ties
+    for r in range(b):
+        scores[r, rng.integers(k // 4, k + 1):] = 0.0  # dead tail
+    if b > 1:
+        scores[-1] = 0.0  # an all-dead row
+    if n_cls > 1:
+        cls = rng.integers(0, n_cls, (b, k)).astype(np.float32)
+        boxes = boxes + (cls * np.float32(4096.0))[..., None]
+    if shuffle:
+        order = np.argsort(rng.uniform(size=k) + (np.arange(k) % 2))
+        boxes, scores = boxes[:, order], scores[:, order]
+    return np.ascontiguousarray(boxes), np.ascontiguousarray(scores)
+
+
+def _canon(idx, valid):
+    idx, valid = np.asarray(idx), np.asarray(valid)
+    return np.where(valid, idx, -1), valid
+
+
+def _assert_same(port, ref):
+    p_idx, p_val = _canon(*(t.numpy() for t in port))
+    r_idx, r_val = _canon(*ref)
+    np.testing.assert_array_equal(p_val, r_val)
+    np.testing.assert_array_equal(p_idx, r_idx)
+
+
+@pytest.mark.parametrize("b,k,thr,shuffle,n_cls", [
+    (4, 128, 0.45, False, 1),
+    (3, 200, 0.65, True, 1),   # K not a multiple of 128, unsorted
+    (2, 384, 0.5, False, 80),  # class offset
+])
+def test_greedy_twin_matches_pallas(b, k, thr, shuffle, n_cls):
+    boxes, scores = make_candidates(b * 1000 + k, b, k, shuffle, n_cls)
+    for max_keep in (40, 300):
+        ref = pallas_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), thr,
+                                max_keep=max_keep, interpret=True)
+        tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+        _assert_same(port_greedy.greedy_nms(tb, ts, thr, max_keep), ref)
+        _assert_same(port_greedy.nms_greedy(tb, ts, thr, max_keep), ref)
+    assert port_greedy.nms_greedy.launches == 0  # CPU tensors take the twin
+
+
+@pytest.mark.parametrize("b,k,shuffle,n_cls", [
+    (1, 512, False, 1),
+    (4, 256, True, 1),
+    (2, 200, True, 80),  # K not a multiple of 128, class offset
+])
+def test_matrix_twin_matches_pallas(b, k, shuffle, n_cls):
+    boxes, scores = make_candidates(b * 7 + k, b, k, shuffle, n_cls)
+    for max_keep in (50, 300):
+        ref = pallas_matrix_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                max_keep=max_keep, interpret=True)
+        tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+        _assert_same(port_matrix.matrix_nms_plain(tb, ts, 0.5, max_keep), ref)
+        _assert_same(port_matrix.matrix_nms(tb, ts, 0.5, max_keep), ref)
+    assert port_matrix.matrix_nms.launches == 0
+
+
+@pytest.mark.parametrize("k,shuffle", [(600, True), (384, False)])
+def test_chunked_matches_pallas_chunked(k, shuffle):
+    boxes, scores = make_candidates(k, 2, k, shuffle, n_cls=3)
+    ref = pallas_matrix_nms_chunked(jnp.asarray(boxes), jnp.asarray(scores), 0.45,
+                                    max_keep=300, chunk=128, interpret=True)
+    got = port_matrix.matrix_nms_chunked(torch.from_numpy(boxes),
+                                         torch.from_numpy(scores), 0.45,
+                                         max_keep=300, chunk=128)
+    _assert_same(got, ref)
+
+
+def test_twins_agree_with_each_other():
+    """Greedy, matrix and chunked twins are one function."""
+    boxes, scores = make_candidates(3, 3, 700, True, n_cls=5)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    g = port_greedy.greedy_nms(tb, ts, 0.6, 300)
+    m = port_matrix.matrix_nms_plain(tb, ts, 0.6, 300)
+    c = port_matrix.matrix_nms_chunked(tb, ts, 0.6, 300, chunk=256)
+    for other in (m, c):
+        np.testing.assert_array_equal(g[0].numpy(), other[0].numpy())
+        np.testing.assert_array_equal(g[1].numpy(), other[1].numpy())
+
+
+def test_wrappers_reject_bad_inputs():
+    boxes = torch.zeros(2, 8, 4)
+    with pytest.raises(TypeError):
+        port_greedy.nms_greedy(boxes.double(), torch.zeros(2, 8, dtype=torch.float64), 0.5)
+    with pytest.raises(ValueError):
+        port_greedy.nms_greedy(boxes, torch.zeros(2, 9), 0.5)
+    with pytest.raises(ValueError):
+        port_matrix.matrix_nms(torch.zeros(1, 1025, 4), torch.zeros(1, 1025), 0.5)
+
+
+def _candidates_for_serving(seed, b, k):
+    boxes, scores = make_candidates(seed, b, k, shuffle=True)
+    cls = np.random.default_rng(seed + 1).integers(0, 4, (b, k)).astype(np.float32)
+    return boxes, scores, cls
+
+
+@pytest.mark.parametrize("b,k,thr", [
+    (8, 512, 0.45),   # matrix branch, serving threshold
+    (20, 256, 0.45),  # greedy branch (B > 16)
+    (2, 1500, 0.65),  # greedy branch (K > 1024), protocol threshold
+    (1, 8200, 0.65),  # chunked branch (K > 8192)
+])
+def test_nms_candidates_matches_jax(b, k, thr):
+    boxes, scores, cls = _candidates_for_serving(b + k, b, k)
+    ref = np.asarray(jax_nms_candidates(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cls),
+        iou_threshold=thr, max_keep=300, merge_boxes=True, use_pallas=False))
+    got = port_nms.nms_candidates(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(cls),
+        iou_threshold=thr, max_keep=300, merge_boxes=True).numpy()
+    assert got.shape == (b, 300, 6)
+    assert (got[..., 4] > 0).any()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("merge_gate_max", [3000, 301])
+def test_nms_candidates_merge_write_matches_jax(merge_gate_max):
+    """The retinanet merge (IoU-weighted boxes written to the output) and
+    the fcos gate. The merged box is a matmul, whose summation order
+    differs between the two packages: boxes at atol 1e-3 px, the rest exact."""
+    boxes, scores, cls = _candidates_for_serving(11, 3, 1024)
+    scores[0, np.flatnonzero(scores[0] > 0)[200:]] = 0.0  # under both gates
+    kw = dict(iou_threshold=0.45, max_keep=300, merge_boxes=True,
+              merge_write_boxes=True, merge_gate_max=merge_gate_max)
+    ref = np.asarray(jax_nms_candidates(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cls), use_pallas=False, **kw))
+    got = port_nms.nms_candidates(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(cls), **kw).numpy()
+    plain = port_nms.nms_candidates(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(cls),
+        iou_threshold=0.45, max_keep=300, merge_gate_max=merge_gate_max).numpy()
+    n_live = (scores > 0).sum(axis=1)
+    gated = (n_live > 1) & (n_live < merge_gate_max)
+    assert gated.any() and (np.abs(got[gated, :, :4] - plain[gated, :, :4]) > 1e-2).any()
+    np.testing.assert_array_equal(got[~gated], plain[~gated])
+    np.testing.assert_array_equal(got[..., 4:], ref[..., 4:])
+    np.testing.assert_allclose(got[..., :4], ref[..., :4], rtol=0, atol=1e-3)
+
+
+def test_soft_nms_modes_raise():
+    boxes, scores, cls = _candidates_for_serving(5, 2, 300)
+    args = [torch.from_numpy(a) for a in (boxes, scores, cls)]
+    for mode in ("soft_linear", "soft_exp"):
+        with pytest.raises(NotImplementedError):
+            port_nms.nms_candidates(*args, 0.5, nms_mode=mode)
+
+
+@pytest.mark.parametrize("k", [16, 500])
+def test_select_topk_candidates_matches_jax(k):
+    rng = np.random.default_rng(k)
+    boxes = rng.uniform(0, 100, (300, 4)).astype(np.float32)
+    scores = rng.uniform(0, 1, 300).astype(np.float32)
+    scores[::3] = 0.0  # exact-zero ties: lowest index first
+    classes = rng.integers(0, 5, 300).astype(np.float32)
+    ref = jax_select_topk(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(classes), k)
+    got = port_nms.select_topk_candidates(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                          torch.from_numpy(classes), k)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))

@@ -1,0 +1,107 @@
+"""Folder inference with the port.
+
+    python -m yoloseries_tpu_torch.cli.detect --weights yolov5s.pt \
+        --img-dir photos/ --num-class 80 [--conf 0.3] [--iou 0.2] [--device cpu]
+
+Weights are a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the
+JAX package's trees in an ``.npz`` whose keys are ``params/...`` and
+``batch_stats/...`` paths joined by ``/``. Images are letterboxed on the
+host, run through ``Evaluator`` (fused decode + class-aware NMS on the
+card), and the detections, in original-image pixels, are written as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..evaluation import EvalConfig, Evaluator, yolov5_decode_fn, yolov5_select_fn
+from ..models import create_model
+from ..utils.weights import state_dict_from_jax, unflatten_tree
+
+__all__ = ["detect_batch", "load_weights", "main"]
+
+IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+def load_weights(model: torch.nn.Module, path) -> None:
+    """Load a ``.pt`` port ``state_dict`` or an ``.npz`` of JAX trees."""
+    path = Path(path)
+    if path.suffix == ".npz":
+        with np.load(path) as data:
+            tree = unflatten_tree({tuple(k.split("/")): data[k] for k in data.files})
+        sd = state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd)
+
+
+def detect_batch(evaluator: Evaluator, batch_u8, infos=None) -> list:
+    """Letterboxed uint8 batch (B, H, W, 3) -> per-image (n, 6) numpy arrays
+    [x1, y1, x2, y2, conf, cls] (None where nothing is detected), mapped to
+    original-image pixels when ``infos`` (B, 5) is given."""
+    dets = evaluator(batch_u8)
+    return Evaluator.to_host_detections(dets, infos)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", default="yolov5s")
+    p.add_argument("--weights", required=True)
+    p.add_argument("--img-dir", required=True)
+    p.add_argument("--save-dir", default="detect_out")
+    p.add_argument("--num-class", type=int, required=True)
+    p.add_argument("--input-size", type=int, default=640)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--conf", type=float, default=0.3)
+    p.add_argument("--iou", type=float, default=0.2)
+    p.add_argument("--device", default=None, help="default cuda; 'cpu' to run on the CPU")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from PIL import Image  # only the CLI reads image files
+
+    from ..ops.letterbox import letterbox_image
+
+    model = create_model(args.model, num_class=args.num_class, device="cpu")
+    load_weights(model, args.weights)
+    cfg = EvalConfig(conf_threshold=args.conf, cls_threshold=args.conf,
+                     iou_threshold=args.iou, merge_boxes=True)
+    evaluator = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg),
+                          device=args.device)
+
+    paths = sorted(p for p in Path(args.img_dir).iterdir()
+                   if p.suffix.lower() in IMG_EXTENSIONS)
+    save_dir = Path(args.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    results = {}
+    size = (args.input_size, args.input_size)
+    for start in range(0, len(paths), args.batch_size):
+        chunk = paths[start:start + args.batch_size]
+        batch = np.zeros((args.batch_size, *size, 3), np.uint8)
+        infos = np.ones((args.batch_size, 5), np.float32)  # padding rows: identity
+        for i, p in enumerate(chunk):
+            raw = np.asarray(Image.open(p).convert("RGB"))
+            batch[i], info = letterbox_image(raw, size, stride=32)
+            infos[i] = info.as_array()
+        t0 = time.perf_counter()
+        preds = detect_batch(evaluator, batch, infos)[:len(chunk)]
+        dt = time.perf_counter() - t0
+        for p, det in zip(chunk, preds):
+            n = 0 if det is None else len(det)
+            results[p.name] = [] if det is None else det.tolist()
+            print(f"{p.name}: {n} boxes ({dt / len(chunk):.3f}s/img)")
+    out = save_dir / "detections.json"
+    out.write_text(json.dumps(results))
+    print(f"saved to {out}")
+
+
+if __name__ == "__main__":
+    main()

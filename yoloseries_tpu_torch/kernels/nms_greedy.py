@@ -1,0 +1,115 @@
+"""Streaming greedy NMS: the CUDA kernel ``csrc/nms_greedy.cu`` and its
+plain PyTorch twin.
+
+Replaces ``yoloseries_tpu/kernels/nms_pallas.py::pallas_greedy_nms``.
+Contract: boxes (B, K, 4) f32 xyxy with any class offset already added,
+scores (B, K) f32 with 0 marking dead slots, K <= 8192; returns
+``keep_idx`` (B, max_keep) int32 padded with -1 and ``keep_valid``
+(B, max_keep) bool. Suppression at IoU >= thr, ties to the lower index, the
+keeper zeroed explicitly (a zero-area box has self-IoU 0).
+
+``nms_greedy`` runs the twin for a tensor on the CPU and the kernel for a
+tensor on a CUDA device; ``nms_greedy.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["GREEDY_MAX_K", "greedy_nms", "nms_greedy"]
+
+GREEDY_MAX_K = 8192  # 5 planes x K x 4 B of shared memory: 160 KB
+
+
+def _iou_one_vs_all(ref: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """IoU of (B, 4) keepers against their rows of (B, K, 4) boxes."""
+    lt = torch.maximum(ref[:, None, 0:2], boxes[..., 0:2])
+    rb = torch.minimum(ref[:, None, 2:4], boxes[..., 2:4])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = (ref[:, 2] - ref[:, 0]) * (ref[:, 3] - ref[:, 1])
+    area2 = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+    return inter / (area1[:, None] + area2 - inter).clamp_min(1e-9)
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               max_keep: int):
+    """Plain greedy NMS, (K, 4)/(K,) or batched (B, K, 4)/(B, K).
+
+    Each step takes the leftmost argmax of the live scores; a best score
+    <= 0 ends the image (every later slot stays -1 / False)."""
+    single = scores.dim() == 1
+    if single:
+        boxes, scores = boxes[None], scores[None]
+    boxes = boxes.float()
+    live = scores.float().clone()
+    b = live.shape[0]
+    rows = torch.arange(b, device=live.device)
+    keep_idx = torch.full((b, max_keep), -1, dtype=torch.int32, device=live.device)
+    keep_valid = torch.zeros((b, max_keep), dtype=torch.bool, device=live.device)
+    for slot in range(max_keep):
+        idx = live.argmax(dim=1)  # first maximal value: lowest index on ties
+        valid = live[rows, idx] > 0.0
+        if not bool(valid.any()):
+            break
+        suppress = _iou_one_vs_all(boxes[rows, idx], boxes) >= iou_threshold
+        live = torch.where(valid[:, None] & suppress, 0.0, live)
+        live[rows, idx] = 0.0  # zero the keeper explicitly
+        keep_idx[:, slot] = torch.where(valid, idx.to(torch.int32), -1)
+        keep_valid[:, slot] = valid
+    if single:
+        return keep_idx[0], keep_valid[0]
+    return keep_idx, keep_valid
+
+
+def check_nms_inputs(boxes: torch.Tensor, scores: torch.Tensor, max_k: int,
+                     name: str) -> None:
+    """Raise on inputs an NMS kernel does not take."""
+    if scores.dim() != 2 or boxes.shape != (*scores.shape, 4):
+        raise ValueError(f"{name}: want boxes (B, K, 4) and scores (B, K), got "
+                         f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"{name}: boxes and scores must be float32")
+    if boxes.device != scores.device:
+        raise ValueError(f"{name}: boxes and scores on different devices")
+    if not 1 <= scores.shape[1] <= max_k:
+        raise ValueError(f"{name}: K={scores.shape[1]} outside 1..{max_k}")
+
+
+def launch_nms(entry: str, wrapper, boxes: torch.Tensor, scores: torch.Tensor,
+               iou_threshold: float, max_keep: int):
+    """Allocate the outputs, launch C entry ``entry`` on the current stream
+    and count the launch on ``wrapper.launches`` (inputs already checked)."""
+    if boxes.device.type != "cuda":
+        raise ValueError(f"{entry}: tensors must be on the CPU or a CUDA device")
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError(f"{entry}: boxes and scores must be contiguous")
+    b, k = scores.shape
+    keep_idx = torch.empty((b, max_keep), dtype=torch.int32, device=boxes.device)
+    keep_valid = torch.empty((b, max_keep), dtype=torch.bool, device=boxes.device)
+    if b == 0 or max_keep == 0:
+        return keep_idx, keep_valid
+    fn = getattr(_build.load(), entry)
+    with torch.cuda.device(boxes.device):
+        err = fn(boxes.data_ptr(), scores.data_ptr(), b, k, float(iou_threshold),
+                 max_keep, keep_idx.data_ptr(), keep_valid.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry)
+    wrapper.launches += 1
+    return keep_idx, keep_valid
+
+
+def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               max_keep: int = 300):
+    """Batched greedy NMS: the CUDA kernel on a CUDA tensor, the twin on a
+    CPU tensor. Returns (keep_idx (B, max_keep) int32, keep_valid bool)."""
+    check_nms_inputs(boxes, scores, GREEDY_MAX_K, "nms_greedy")
+    if boxes.device.type == "cpu":
+        return greedy_nms(boxes, scores, iou_threshold, max_keep)
+    return launch_nms("yst_nms_greedy", nms_greedy, boxes, scores,
+                      iou_threshold, max_keep)
+
+
+nms_greedy.launches = 0
