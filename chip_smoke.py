@@ -9,19 +9,25 @@ Phases (any failure exits non-zero and prints no result line):
    sm_90a, timed, with the ``-Xptxas -v`` register and shared-memory use;
 3. kernels vs their plain PyTorch twins on the card, index for index
    (exact ties, zero-area boxes, all-dead rows, class offset, shuffled
-   input), with ``torch.cuda.synchronize()`` after each launch;
+   input; B3 where the carry fills early, inside a strip, and at K not a
+   multiple of 1024), the relation words bit for bit, with
+   ``torch.cuda.synchronize()`` after each launch;
 4. model: yolov5s at nc=80 from a seeded generator (7,235,389 parameters),
    640x640 B=1 f32 on the card against the same module on the CPU;
 5. serving: the port ``Evaluator`` on seeded uint8 batches (serving config
    at B=8 and B=256, protocol config at B=64, TTA at B=2) and
    ``detect_batch`` once; each path's kernel launch counter is zeroed
    before the path and must have grown after it; img/s and peak memory;
-6. kernel timings (CUDA events) at the candidates the serving path produced,
-   beside the plain twins, the bytes/operations bound and the dependent-chain
-   bound (steps these inputs need x the measured time of one block-wide
-   step, ``csrc/step_probe.cu``);
-7. a torch.profiler breakdown of one serving and one protocol batch:
-   device-busy and idle share, the heaviest kernels, the NMS kernels' share;
+6. kernel timings (CUDA events, and the device time per call from
+   torch.profiler beside them) at the candidates the serving path produced
+   (B2 also at a TTA strip's own inputs), beside the plain twins, the
+   bytes/operations bound and the dependent-chain bound (steps these inputs
+   need x the measured time of one block-wide step,
+   ``csrc/step_probe.cu``); the strips of the TTA batch that did work; B1
+   and B2 side by side over B in {1, 8, 16, 32, 64} x K in {512, 1024};
+7. a torch.profiler breakdown of one serving, one protocol and one TTA
+   batch: device-busy and idle share, the heaviest kernels, the NMS
+   kernels' share;
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
@@ -127,28 +133,47 @@ def phase_kernels_vs_twins():
     from yoloseries_tpu_torch.kernels import nms_greedy as g
     from yoloseries_tpu_torch.kernels import nms_matrix as m
 
-    cases = {
-        "nms_greedy": (g.nms_greedy, g.greedy_nms, [
-            (256, 512, 0.45, False), (8, 4096, 0.65, True), (3, 1000, 0.5, True)]),
-        "matrix_nms": (m.matrix_nms, m.matrix_nms_plain, [
-            (b, k, 0.45, shuffle) for b in (1, 8, 16) for k in (512, 1024)
-            for shuffle in (False, True)]),
-        "matrix_nms_chunked": (m.matrix_nms_chunked, g.greedy_nms, [
-            (2, 12288, 0.65, True)]),
+    mismatches = {"nms_relation": 0}
+    for i, (b, k, thr, shuffle) in enumerate([(8, 512, 0.45, False), (2, 1024, 0.65, True),
+                                              (16, 1024, 0.45, True), (3, 200, 0.5, True)]):
+        boxes, scores = candidates(500 * i + k, b, k, shuffle=shuffle)
+        want = m.nms_relation_plain(boxes, scores, thr)
+        torch.cuda.synchronize()
+        got = m.nms_relation(boxes, scores, thr)
+        torch.cuda.synchronize()
+        n = int((got != want).sum())  # differing words, bit for bit
+        mismatches["nms_relation"] += n
+        log(f"  nms_relation B={b} K={k} thr={thr} shuffled={shuffle}: "
+            f"{int((want != 0).sum())} nonzero words, {n} mismatches")
+
+    chunked = (m.matrix_nms_chunked, m.matrix_nms_chunked_plain)
+    cases = {  # name -> [(kernel, twin, B, K, thr, shuffled, max_keep, what)]
+        "nms_greedy": [(g.nms_greedy, g.greedy_nms, *shape, MAX_KEEP, "") for shape in (
+            (256, 512, 0.45, False), (8, 4096, 0.65, True), (3, 1000, 0.5, True))],
+        "matrix_nms": [(m.matrix_nms, m.matrix_nms_plain, b, k, 0.45, shuffle, MAX_KEEP, "")
+                       for b in (1, 8, 16) for k in (512, 1024) for shuffle in (False, True)],
+        "matrix_nms_chunked": [
+            (m.matrix_nms_chunked, g.greedy_nms, 2, 12288, 0.65, True, MAX_KEEP,
+             "against greedy; image 1 all dead"),
+            (*chunked, 2, 12288, 0.65, True, MAX_KEEP, "image 1 all dead"),
+            (*chunked, 2, 4096, 0.65, True, 20, "carry fills in strip 0"),
+            (*chunked, 3, 9000, 0.65, True, MAX_KEEP, "K not a multiple of 1024"),
+            (*chunked, 2, 12288, 0.45, False, 100, "carry fills inside a strip"),
+        ],
     }
-    mismatches = {}
-    for name, (kernel, twin, shapes) in cases.items():
+    for name, shapes in cases.items():
         bad = 0
-        for i, (b, k, thr, shuffle) in enumerate(shapes):
+        for i, (kernel, twin, b, k, thr, shuffle, keep, what) in enumerate(shapes):
             boxes, scores = candidates(1000 * i + k, b, k, shuffle=shuffle)
-            want = twin(boxes, scores, thr, MAX_KEEP)
+            want = twin(boxes, scores, thr, keep)
             torch.cuda.synchronize()
-            got = kernel(boxes, scores, thr, MAX_KEEP)
+            got = kernel(boxes, scores, thr, keep)
             torch.cuda.synchronize()
             n = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
             bad += n
-            log(f"  {name} B={b} K={k} thr={thr} shuffled={shuffle}: "
-                f"{int(want[1].sum())} keepers, {n} mismatches")
+            log(f"  {name} B={b} K={k} thr={thr} shuffled={shuffle} max_keep={keep}"
+                f"{' (' + what + ')' if what else ''}: {int(want[1].sum())} keepers, "
+                f"{n} mismatches")
         mismatches[name] = bad
     if any(mismatches.values()):
         fail(f"kernel/twin mismatches {mismatches}")
@@ -386,57 +411,112 @@ def fixpoint_rounds(boxes, scores, thr):
 
 
 def strip_inputs(boxes, scores, thr):
-    """(boxes, scores) of every strip the chunked driver hands the matrix
-    kernel, after the carried-keeper kills."""
+    """(boxes, scores) of every strip the chunked twin hands
+    ``matrix_nms_plain``, after the carried-keeper kills, with the scores
+    of an image that is done (carry full, or the rest dead) zeroed: the
+    strips and images the kernel does work for. The twin stops after the
+    last strip any image needs."""
     from yoloseries_tpu_torch.kernels import nms_matrix as m
 
-    inner, strips = m.matrix_nms, []
+    inner, strips = m.matrix_nms_plain, []
 
     def record(b, s, t, keep):
         strips.append((b.clone(), s.clone()))
         return inner(b, s, t, keep)
 
-    record.launches = 0  # the wrapper counts on whatever ``matrix_nms`` names
-    m.matrix_nms = record
+    m.matrix_nms_plain = record
     try:
-        m.matrix_nms_chunked(boxes, scores, thr, MAX_KEEP)
+        m.matrix_nms_chunked_plain(boxes, scores, thr, MAX_KEEP)
     finally:
-        m.matrix_nms = inner
+        m.matrix_nms_plain = inner
     return strips
 
 
-def chain_steps(name, boxes, scores, thr, keepers):
+def chain_steps(name, boxes, scores, thr, keepers, strips=None):
     """Dependent block-wide steps these inputs need, and the block size the
     kernel runs them in. Images run side by side (one block each), so the
     longest image sets the chain. B1 decides one keeper per step; B2 runs
     two dependent exchanges per fixpoint round (confirm publishes the kept
-    set, kill the undecided set); B3 runs its strips one after another."""
+    set, kill the undecided set); B3 runs the strips its data needs (up to
+    the one where the last carry fills) one after another."""
     if name == "nms_greedy":
         return int(keepers.max()), min(1024, -(-scores.shape[1] // 32) * 32)
     if name == "matrix_nms":
         return 2 * int(fixpoint_rounds(boxes, scores, thr).max()), -(-scores.shape[1] // 32) * 32
-    steps = sum(2 * int(fixpoint_rounds(b, s, thr).max())
-                for b, s in strip_inputs(boxes, scores, thr))
+    steps = sum(2 * int(fixpoint_rounds(b, s, thr).max()) for b, s in strips)
     return steps, 1024
+
+
+def profiled_ms(fn, iters=10):
+    """Device time per call of ``fn`` (torch.profiler: every kernel and
+    copy it enqueues), beside the CUDA-event time, which also holds the
+    host's enqueue when that is the longer, and the same split by device
+    event name. (None, {}) when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy = sum(t for t, _ in events)
+    split = {name[:60]: t / iters / 1e3 for t, name in events}
+    return (busy / iters / 1e3, split) if busy > 0 else (None, {})
+
+
+def crossover(card):
+    """B1 and B2 timed side by side at clustered candidates over the batch
+    sizes and K the dispatch in ``ops/nms.py`` chooses between."""
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    rows = []
+    for k in (512, 1024):
+        for b in (1, 8, 16, 32, 64):
+            boxes, scores = candidates(7 * b + k, b, k)
+            t_greedy = cuda_ms(lambda: g.nms_greedy(boxes, scores, 0.45, MAX_KEEP), iters=20)
+            t_matrix = cuda_ms(lambda: m.matrix_nms(boxes, scores, 0.45, MAX_KEEP), iters=20)
+            rows.append({"B": b, "K": k, "greedy_ms": t_greedy, "matrix_ms": t_matrix})
+            log(f"  crossover B={b} K={k} thr=0.45: B1 nms_greedy {t_greedy:.4f} ms, "
+                f"B2 matrix_nms {t_matrix:.4f} ms, faster: "
+                f"{'B2' if t_matrix < t_greedy else 'B1'} [{card}]")
+    return rows
 
 
 def phase_timings(captured, launches, mismatches, card):
     from yoloseries_tpu_torch.kernels import nms_greedy as g
     from yoloseries_tpu_torch.kernels import nms_matrix as m
 
+    tta = captured["tta B=2"]
+    strips = strip_inputs(*tta)  # what the TTA batch's strips hand the fixpoint
+    boxes, scores, thr = captured["serving B=8"]
+    perm = torch.randperm(scores.shape[1], generator=torch.Generator().manual_seed(0))
+    perm = perm.to(scores.device)  # the same candidates out of priority order
+    captured = dict(captured, **{
+        "tta strip 0, B=2": (*strips[0], tta[2]),
+        "serving B=8, shuffled": (boxes[:, perm].contiguous(), scores[:, perm].contiguous(),
+                                  thr)})
+    n_strips = -(-tta[1].shape[1] // 1024)
+    busy = sum(int((s > 0).any(dim=1).sum()) for _, s in strips)
+    log(f"  tta B=2: {len(strips)} of {n_strips} strips run; (image, strip) pairs with "
+        f"work: {busy} of {tta[1].shape[0] * n_strips}")
+    b2 = ("yoloseries_tpu_torch/csrc/nms_matrix.cu, yoloseries_tpu_torch/csrc/nms_relation.cu",
+          "yoloseries_tpu/kernels/nms_matrix.py:151")
     specs = [
         ("nms_greedy", "serving B=256", g.nms_greedy, g.greedy_nms,
          "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
         ("nms_greedy", "protocol B=64", g.nms_greedy, g.greedy_nms,
          "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
-        ("matrix_nms", "serving B=8", m.matrix_nms, m.matrix_nms_plain,
-         "yoloseries_tpu_torch/csrc/nms_matrix.cu", "yoloseries_tpu/kernels/nms_matrix.py:151"),
-        ("matrix_nms_chunked", "tta B=2", m.matrix_nms_chunked, g.greedy_nms,
-         "yoloseries_tpu_torch/kernels/nms_matrix.py",
-         "yoloseries_tpu/kernels/nms_matrix.py:194"),
+        ("matrix_nms", "serving B=8", m.matrix_nms, m.matrix_nms_plain, *b2),
+        ("matrix_nms", "tta strip 0, B=2", m.matrix_nms, m.matrix_nms_plain, *b2),
+        ("matrix_nms", "serving B=8, shuffled", m.matrix_nms, m.matrix_nms_plain, *b2),
+        ("matrix_nms_chunked", "tta B=2", m.matrix_nms_chunked, m.matrix_nms_chunked_plain,
+         b2[0], "yoloseries_tpu/kernels/nms_matrix.py:194"),
     ]
-    counters = {"nms_greedy": g.nms_greedy, "matrix_nms": m.matrix_nms,
-                "matrix_nms_chunked": m.matrix_nms_chunked}
+    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
+                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
     saved = {k: f.launches for k, f in counters.items()}
     step = {}  # block size -> us per dependent step
     rows = {}
@@ -447,13 +527,19 @@ def phase_timings(captured, launches, mismatches, card):
         want = twin(boxes, scores, thr, MAX_KEEP)
         torch.cuda.synchronize()
         err = float(max((ki - want[0]).abs().max(), (kv != want[1]).sum()))
+        if name == "matrix_nms":  # the relation words, bit for bit
+            words = m.nms_relation(boxes, scores, thr)
+            err = max(err, float((words != m.nms_relation_plain(boxes, scores, thr)).sum()))
         ms = cuda_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP), iters=20)
+        device_ms, split = profiled_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP))
         plain = cuda_ms(lambda: twin(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
         keepers = kv.sum(dim=1)
-        # exact greedy needs one IoU row of K per keeper, whatever the kernel
-        # computes beyond that (B2 builds the whole K x K relation)
-        bound, by = bound_ms(boxes, int(keepers.sum()) * k)
-        steps, threads = chain_steps(name, boxes, scores, thr, keepers)
+        # exact greedy needs one IoU row per keeper over the candidates it
+        # looks at, whatever the kernel computes beyond that (B2 builds the
+        # whole relation): all K, and for B3 the strips its data needs
+        seen = len(strips) * 1024 if name == "matrix_nms_chunked" else k
+        bound, by = bound_ms(boxes, int(keepers.sum()) * seen)
+        steps, threads = chain_steps(name, boxes, scores, thr, keepers, strips)
         if threads not in step:
             step[threads] = step_us(threads)
             log(f"  one block-wide dependent step (csrc/step_probe.cu) at {threads} "
@@ -461,9 +547,9 @@ def phase_timings(captured, launches, mismatches, card):
         chain = steps * step[threads] * 1e-3
         binding = "dependent steps" if chain > bound else by
         row = {"shape": f"{label}: B={b} K={k} thr={thr}", "max_abs_err": err,
-               "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-               "chain_ms": chain, "chain_steps": steps, "step_us": step[threads],
-               "binding": binding}
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "chain_ms": chain, "chain_steps": steps,
+               "step_us": step[threads], "binding": binding}
         if name in rows:  # a second shape of the same kernel on the path
             rows[name].setdefault("other_shapes", []).append(row)
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -471,10 +557,16 @@ def phase_timings(captured, launches, mismatches, card):
             rows[name] = {"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "mismatches": mismatches[name], **row, "library_ms": None}
-        log(f"  {name} [{label}] B={b} K={k}: kernel {ms:.4f} ms, plain twin {plain:.3f} ms, "
-            f"bound {bound:.6f} ms ({by}), chain {chain:.6f} ms ({steps} steps x "
-            f"{step[threads]:.4f} us), binding: {binding}, mean keepers "
-            f"{float(keepers.float().mean()):.1f}, no library yardstick [{card}]")
+        dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+        log(f"  {name} [{label}] B={b} K={k}: kernel {ms:.4f} ms (CUDA events), device time "
+            f"{dev} (profiler), plain twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), "
+            f"chain {chain:.6f} ms ({steps} steps x {step[threads]:.4f} us), binding: "
+            f"{binding}, mean keepers {float(keepers.float().mean()):.1f}, "
+            f"no library yardstick [{card}]")
+        log("    device time per call by kernel: "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in list(split.items())[:6]))
+    rows["matrix_nms"]["relation_mismatches"] = mismatches["nms_relation"]
+    rows["matrix_nms"]["crossover"] = crossover(card)
     for k, f in counters.items():
         f.launches = saved[k]  # the timing launches are not the path's
     rows = list(rows.values())
@@ -484,7 +576,7 @@ def phase_timings(captured, launches, mismatches, card):
 
 
 KERNEL_GROUPS = (  # (group, substrings of the device event name), first match wins
-    ("NMS kernels", ("nms_kernel",)),
+    ("NMS kernels", ("nms_kernel", "nms_relation_kernel", "nms_fixpoint_kernel")),
     ("H2D copy", ("Memcpy HtoD",)),
     ("convolution", ("conv", "fprop", "xmma", "implicit_gemm", "cudnn", "gemm")),
     ("sort / top-k", ("sort", "Sort", "radix", "topk")),
@@ -527,6 +619,8 @@ def phase_profile(model, card):
                                           iou_threshold=0.45, num_candidates=512)),
         ("protocol B=64", 64, EvalConfig(conf_threshold=0.001, cls_threshold=0.001,
                                          iou_threshold=0.65, num_candidates=4096)),
+        ("tta B=2", 2, EvalConfig(conf_threshold=0.001, cls_threshold=0.001,
+                                  iou_threshold=0.65, num_candidates=4096, use_tta=True)),
     ):
         ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device="cuda")
         img = rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)

@@ -50,10 +50,10 @@ def candidates(seed, b, k, n_cls=4, shuffle=True):
             torch.from_numpy(np.ascontiguousarray(scores)))
 
 
-def _check(kernel, twin, dev, b, k, thr, **kw):
-    boxes, scores = candidates(b * 31 + k, b, k)
-    want = twin(boxes.to(dev), scores.to(dev), thr, 300, **kw)
-    got = kernel(boxes.to(dev), scores.to(dev), thr, 300, **kw)
+def _check(kernel, twin, dev, b, k, thr, max_keep=300, shuffle=True, **kw):
+    boxes, scores = candidates(b * 31 + k, b, k, shuffle=shuffle)
+    want = twin(boxes.to(dev), scores.to(dev), thr, max_keep, **kw)
+    got = kernel(boxes.to(dev), scores.to(dev), thr, max_keep, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[1].cpu(), want[1].cpu())
     assert torch.equal(got[0].cpu(), want[0].cpu())
@@ -66,11 +66,26 @@ def test_greedy_kernel_matches_twin(cuda, b, k, thr):
     assert nms_greedy.nms_greedy.launches == n + 1
 
 
-@pytest.mark.parametrize("b,k", [(1, 512), (8, 1024), (16, 700)])
-def test_matrix_kernel_matches_twin(cuda, b, k):
+@pytest.mark.parametrize("b,k,shuffle", [
+    (1, 512, True), (8, 1024, True), (16, 700, True),
+    (8, 512, False), (3, 333, False),  # sorted by priority: the popcount ranks
+])
+def test_matrix_kernel_matches_twin(cuda, b, k, shuffle):
     n = nms_matrix.matrix_nms.launches
-    _check(nms_matrix.matrix_nms, nms_matrix.matrix_nms_plain, cuda, b, k, 0.45)
+    _check(nms_matrix.matrix_nms, nms_matrix.matrix_nms_plain, cuda, b, k, 0.45,
+           shuffle=shuffle)
     assert nms_matrix.matrix_nms.launches == n + 1
+
+
+@pytest.mark.parametrize("b,k", [(8, 512), (2, 1024), (3, 200)])
+def test_relation_kernel_matches_twin_bit_for_bit(cuda, b, k):
+    n = nms_matrix.nms_relation.launches
+    boxes, scores = candidates(b * 17 + k, b, k)
+    want = nms_matrix.nms_relation_plain(boxes.to(cuda), scores.to(cuda), 0.45)
+    got = nms_matrix.nms_relation(boxes.to(cuda), scores.to(cuda), 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert nms_matrix.nms_relation.launches == n + 1
 
 
 def test_chunked_driver_matches_greedy_twin(cuda):
@@ -80,6 +95,19 @@ def test_chunked_driver_matches_greedy_twin(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0].cpu())
     assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.parametrize("b,k,max_keep,chunk", [
+    (2, 12288, 300, 1024),
+    (2, 4096, 20, 1024),  # the carry fills in the first strip
+    (3, 9000, 300, 1024),  # K not a multiple of 1024; one image all dead
+    (2, 1500, 150, 128),  # narrow strips: the carry fills in the middle of one
+])
+def test_chunked_kernel_matches_chunked_twin(cuda, b, k, max_keep, chunk):
+    n = nms_matrix.matrix_nms_chunked.launches
+    _check(nms_matrix.matrix_nms_chunked, nms_matrix.matrix_nms_chunked_plain, cuda, b, k,
+           0.65, max_keep, chunk=chunk)
+    assert nms_matrix.matrix_nms_chunked.launches == n + 1
 
 
 def test_cuda_evaluator_matches_cpu(cuda):

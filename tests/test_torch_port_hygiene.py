@@ -88,15 +88,19 @@ def test_wrappers_on_cpu_use_the_twins():
     xy = torch.rand(2, 300, 2, generator=g) * 500
     boxes = torch.cat([xy, xy + 5 + 60 * torch.rand(2, 300, 2, generator=g)], -1)
     scores = torch.rand(2, 300, generator=g)
-    before = (nms_greedy.nms_greedy.launches, nms_matrix.matrix_nms.launches,
-              nms_matrix.matrix_nms_chunked.launches)
+    wrappers = (nms_greedy.nms_greedy, nms_matrix.nms_relation, nms_matrix.matrix_nms,
+                nms_matrix.matrix_nms_chunked)
+    before = tuple(w.launches for w in wrappers)
     for wrapper, twin in ((nms_greedy.nms_greedy, nms_greedy.greedy_nms),
                           (nms_matrix.matrix_nms, nms_matrix.matrix_nms_plain)):
         got = wrapper(boxes, scores, 0.5, 100)
         want = twin(boxes, scores, 0.5, 100)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    nms_matrix.matrix_nms_chunked(boxes, scores, 0.5, 100, chunk=128)
-    after = (nms_greedy.nms_greedy.launches, nms_matrix.matrix_nms.launches,
-             nms_matrix.matrix_nms_chunked.launches)
+    assert torch.equal(nms_matrix.nms_relation(boxes, scores, 0.5),
+                       nms_matrix.nms_relation_plain(boxes, scores, 0.5))
+    got = nms_matrix.matrix_nms_chunked(boxes, scores, 0.5, 100, chunk=128)
+    want = nms_matrix.matrix_nms_chunked_plain(boxes, scores, 0.5, 100, chunk=128)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    after = tuple(w.launches for w in wrappers)
     assert after == before
     assert _build._lib is None  # nothing was built or loaded

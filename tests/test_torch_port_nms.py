@@ -117,6 +117,124 @@ def test_chunked_matches_pallas_chunked(k, shuffle):
     _assert_same(got, ref)
 
 
+def _relation_reference(boxes, scores, thr):
+    """The relation words pair by pair in numpy float32, in the kernel's
+    op order (csrc/nms_common.cuh), as uint32."""
+    b, k = scores.shape
+    words = np.zeros((b, -(-k // 32), k), np.uint32)
+    f = np.float32
+    for r in range(b):
+        x1, y1, x2, y2 = (boxes[r, :, c] for c in range(4))
+        area = (x2 - x1) * (y2 - y1)
+        for j in range(k):
+            iw = np.maximum(np.minimum(x2[j], x2) - np.maximum(x1[j], x1), f(0))
+            ih = np.maximum(np.minimum(y2[j], y2) - np.maximum(y1[j], y1), f(0))
+            inter = iw * ih
+            iou = inter / np.maximum(area[j] + area - inter, f(1e-9))
+            before = (scores[r, j] > scores[r]) | ((scores[r, j] == scores[r])
+                                                   & (j < np.arange(k)))
+            hit = (iou >= f(thr)) & before & (scores[r, j] > 0) & (scores[r] > 0)
+            words[r, j // 32] |= hit.astype(np.uint32) << np.uint32(j % 32)
+    return words
+
+
+@pytest.mark.parametrize("b,k,shuffle,n_cls", [
+    (2, 77, True, 1),   # K not a multiple of 32, unsorted, an all-dead row
+    (1, 96, False, 3),  # class offset
+])
+def test_relation_twin_matches_pairwise_reference(b, k, shuffle, n_cls):
+    boxes, scores = make_candidates(b * 13 + k, b, k, shuffle, n_cls)
+    want = _relation_reference(boxes, scores, 0.45)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = port_matrix.nms_relation_plain(tb, ts, 0.45)
+    assert got.dtype == torch.int32 and got.shape == (b, -(-k // 32), k)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(port_matrix.nms_relation(tb, ts, 0.45).numpy(), got.numpy())
+    if b > 1:
+        assert not got[-1].any()  # an all-dead row has no relation at all
+    assert port_matrix.nms_relation.launches == 0
+
+
+@pytest.mark.parametrize("b,k,shuffle,n_cls", [
+    (1, 256, False, 1),  # sorted
+    (3, 200, True, 1),   # shuffled, K not a multiple of 32, an all-dead row
+    (2, 333, True, 80),  # class offset
+])
+def test_fixpoint_over_relation_matches_pallas(b, k, shuffle, n_cls):
+    boxes, scores = make_candidates(b * 17 + k, b, k, shuffle, n_cls)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    words = port_matrix.nms_relation_plain(tb, ts, 0.5)
+    for max_keep in (30, 300):
+        ref = pallas_matrix_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                max_keep=max_keep, interpret=True)
+        _assert_same(port_matrix.matrix_fixpoint_plain(words, ts, max_keep), ref)
+
+
+def _count_strips(monkeypatch):
+    """Record the scores of every strip ``matrix_nms_chunked_plain`` hands
+    ``matrix_nms_plain``."""
+    inner, strips = port_matrix.matrix_nms_plain, []
+
+    def record(b, s, thr, keep):
+        strips.append(s.clone())
+        return inner(b, s, thr, keep)
+
+    monkeypatch.setattr(port_matrix, "matrix_nms_plain", record)
+    return strips
+
+
+@pytest.mark.parametrize("max_keep", [20, 300])
+def test_chunked_early_stop_matches_pallas_and_greedy(monkeypatch, max_keep):
+    """K = 5 strips of 128, an all-dead image. With max_keep = 20 every
+    live image's carry fills in the first strip, so the loop stops there;
+    with 300 no carry fills and it stops at the first all-dead strip."""
+    boxes, scores = make_candidates(41, 3, 640, True, n_cls=2)
+    ref = pallas_matrix_nms_chunked(jnp.asarray(boxes), jnp.asarray(scores), 0.45,
+                                    max_keep=max_keep, chunk=128, interpret=True)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    strips = _count_strips(monkeypatch)
+    got = port_matrix.matrix_nms_chunked_plain(tb, ts, 0.45, max_keep, chunk=128)
+    n_strips = len(strips)
+    _assert_same(got, ref)
+    _assert_same(port_greedy.greedy_nms(tb, ts, 0.45, max_keep), ref)
+    _assert_same(port_matrix.matrix_nms_chunked(tb, ts, 0.45, max_keep, chunk=128), ref)
+    if max_keep == 20:
+        assert got[1][:2].all()  # both live images filled their carry
+        assert n_strips == 1  # ... in the first strip: nothing ran after it
+    else:
+        assert not got[1].all(dim=1).any()
+        assert n_strips == -(-int((scores > 0).sum(axis=1).max()) // 128) < 5
+
+
+def test_chunked_carry_fills_mid_strip(monkeypatch):
+    """max_keep falls between image 0's keepers of strip 0 and of strips
+    0-1, so its carry fills in the middle of strip 1 and the cut drops that
+    strip's later keepers; image 1 (the same scores, its boxes crowded
+    together) stays short of max_keep and runs strip 2 alone."""
+    boxes, scores = make_candidates(43, 2, 600, False, n_cls=1)
+    scores[1] = scores[0]
+    wh = boxes[1, :, 2:] - boxes[1, :, :2]
+    xy = np.float32(300) + np.float32(0.1) * (boxes[1, :, :2] - np.float32(300))
+    boxes[1] = np.concatenate([xy, xy + wh], -1)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    order = np.argsort(-scores[0], kind="stable")
+    _, kval = port_greedy.greedy_nms(tb, ts, 0.5, 600)
+    kidx = port_greedy.greedy_nms(tb, ts, 0.5, 600)[0][0][kval[0]].numpy()
+    pos = np.argsort(order)[kidx]  # sorted positions of image 0's keepers
+    n0, n01 = int((pos < 128).sum()), int((pos < 256).sum())
+    max_keep = (n0 + n01) // 2
+    assert n0 < max_keep < n01
+    ref = pallas_matrix_nms_chunked(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                    max_keep=max_keep, chunk=128, interpret=True)
+    strips = _count_strips(monkeypatch)
+    got = port_matrix.matrix_nms_chunked_plain(tb, ts, 0.5, max_keep, chunk=128)
+    _assert_same(got, ref)
+    _assert_same(port_greedy.greedy_nms(tb, ts, 0.5, max_keep), ref)
+    assert got[1][0].all() and not got[1][1].all()
+    assert len(strips) == 3  # strip 3 starts dead in both images
+    assert not strips[2][0].any() and strips[2][1].any()  # image 0 idle after strip 1
+
+
 def test_twins_agree_with_each_other():
     """Greedy, matrix and chunked twins are one function."""
     boxes, scores = make_candidates(3, 3, 700, True, n_cls=5)

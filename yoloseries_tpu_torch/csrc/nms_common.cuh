@@ -10,7 +10,25 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace yst {
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once per device in this process: the attribute call costs host
+// time on every launch otherwise. `done` is the kernel's own bit set of
+// devices (beyond 32 devices the call is simply made every time).
+inline cudaError_t allow_dynamic_smem(const void* kernel, int bytes,
+                                      std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit != 0u && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
   return (x2 - x1) * (y2 - y1);

@@ -25,6 +25,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxK = 8192;  // kernels/nms_greedy.py::GREEDY_MAX_K
 
 __device__ __forceinline__ void argmax_step(float& bv, int& bi, float ov, int oi) {
   if (yst::before(ov, oi, bv, bi)) {
@@ -134,10 +135,12 @@ greedy_nms_kernel(const float* __restrict__ boxes, const float* __restrict__ sco
 extern "C" int yst_nms_greedy(const float* boxes, const float* scores, int B, int K,
                               float thr, int max_keep, int* keep_idx, bool* keep_valid,
                               cudaStream_t stream) {
+  if (K > kMaxK) return (int)cudaErrorInvalidValue;
   const int threads = K >= kMaxThreads ? kMaxThreads : ((K + 31) / 32) * 32;
   const size_t smem = (size_t)5 * K * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned> smem_set{0u};
+  const cudaError_t err = yst::allow_dynamic_smem(
+      (const void*)greedy_nms_kernel, 5 * kMaxK * (int)sizeof(float), smem_set);
   if (err != cudaSuccess) return (int)err;
   greedy_nms_kernel<<<B, threads, smem, stream>>>(boxes, scores, K, thr, max_keep,
                                                   keep_idx, keep_valid);

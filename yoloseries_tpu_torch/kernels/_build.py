@@ -22,7 +22,10 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_log", "check", "load"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_log", "check", "launch",
+           "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
@@ -32,10 +35,13 @@ BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (name, pointer/int/float argument kinds) of every C entry point
+# (name, pointer/int/float argument kinds) of every C entry point; the last
+# pointer is the CUDA stream
 _ENTRIES = {
     "yst_nms_greedy": "ppiifippp",
-    "yst_nms_matrix": "ppiifippp",
+    "yst_nms_relation": "ppiifpp",
+    "yst_nms_matrix": "ppiifipppp",
+    "yst_nms_matrix_chunked": "ppiiifipppp",
     "yst_step_probe": "iipp",  # latency probe, measurement only
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
@@ -98,6 +104,8 @@ def build() -> tuple[Path, str]:
 def load():
     """The loaded kernel library (built on first call in this process)."""
     global _lib, _log
+    if _lib is not None:  # set once, after every entry is typed: no lock needed
+        return _lib
     with _lock:
         if _lib is None:
             path, _log = build()
@@ -119,3 +127,16 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` with ``args`` and the current stream of CUDA
+    ``device`` (made the current device for the call), and raise on an
+    error. The device switch is skipped when it is current already."""
+    fn = getattr(load(), entry)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, entry)

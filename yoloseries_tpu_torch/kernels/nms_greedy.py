@@ -78,25 +78,29 @@ def check_nms_inputs(boxes: torch.Tensor, scores: torch.Tensor, max_k: int,
         raise ValueError(f"{name}: K={scores.shape[1]} outside 1..{max_k}")
 
 
-def launch_nms(entry: str, wrapper, boxes: torch.Tensor, scores: torch.Tensor,
-               iou_threshold: float, max_keep: int):
-    """Allocate the outputs, launch C entry ``entry`` on the current stream
-    and count the launch on ``wrapper.launches`` (inputs already checked)."""
-    if boxes.device.type != "cuda":
+def check_cuda_inputs(entry: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{entry}: tensors must be on the CPU or a CUDA device")
-    if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError(f"{entry}: boxes and scores must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{entry}: tensors must be contiguous")
+
+
+def launch_nms(entry: str, wrapper, boxes: torch.Tensor, scores: torch.Tensor,
+               iou_threshold: float, max_keep: int, scratch: torch.Tensor | None = None):
+    """Allocate the outputs, launch C entry ``entry`` on the current stream
+    (with the device ``scratch`` after the outputs, where it takes one) and
+    count the launch on ``wrapper.launches`` (inputs already checked)."""
+    check_cuda_inputs(entry, boxes, scores)
     b, k = scores.shape
     keep_idx = torch.empty((b, max_keep), dtype=torch.int32, device=boxes.device)
     keep_valid = torch.empty((b, max_keep), dtype=torch.bool, device=boxes.device)
     if b == 0 or max_keep == 0:
         return keep_idx, keep_valid
-    fn = getattr(_build.load(), entry)
-    with torch.cuda.device(boxes.device):
-        err = fn(boxes.data_ptr(), scores.data_ptr(), b, k, float(iou_threshold),
-                 max_keep, keep_idx.data_ptr(), keep_valid.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(err, entry)
+    extra = () if scratch is None else (scratch.data_ptr(),)
+    _build.launch(entry, boxes.device, boxes.data_ptr(), scores.data_ptr(), b, k,
+                  float(iou_threshold), max_keep, keep_idx.data_ptr(),
+                  keep_valid.data_ptr(), *extra)
     wrapper.launches += 1
     return keep_idx, keep_valid
 
