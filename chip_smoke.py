@@ -6,25 +6,33 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
 2. build: every kernel of ``yoloseries_tpu_torch/csrc`` with nvcc for
-   sm_90a, timed, with the ``-Xptxas -v`` register and shared-memory use;
+   sm_90a, timed, with the ``-Xptxas -v`` register and shared-memory use
+   and B1's dynamic shared memory by K (the kernel's formula; phase 3
+   launches it at K=8192, the most a block may hold);
 3. kernels vs their plain PyTorch twins on the card, index for index
-   (exact ties, zero-area boxes, all-dead rows, class offset, shuffled
-   input; B3 where the carry fills early, inside a strip, and at K not a
-   multiple of 1024), the relation words bit for bit, with
-   ``torch.cuda.synchronize()`` after each launch;
+   (exact ties, zero-area boxes, all-dead rows and images, class offset,
+   sorted and shuffled input; B1 at the path's shapes, at K=8192 and with
+   max_keep cut inside a tile; B3 where the carry fills early, inside a
+   strip, and at K not a multiple of 1024), the relation words bit for bit,
+   with ``torch.cuda.synchronize()`` after each launch;
 4. model: yolov5s at nc=80 from a seeded generator (7,235,389 parameters),
    640x640 B=1 f32 on the card against the same module on the CPU;
 5. serving: the port ``Evaluator`` on seeded uint8 batches (serving config
-   at B=8 and B=256, protocol config at B=64, TTA at B=2) and
+   at B=8 and B=256, serving TTA at B=2, whose three sorted branches reach
+   B1 unsorted, protocol config at B=64, protocol TTA at B=2) and
    ``detect_batch`` once; each path's kernel launch counter is zeroed
    before the path and must have grown after it; img/s and peak memory;
 6. kernel timings (CUDA events, and the device time per call from
    torch.profiler beside them) at the candidates the serving path produced
    (B2 also at a TTA strip's own inputs), beside the plain twins, the
-   bytes/operations bound and the dependent-chain bound (steps these inputs
-   need x the measured time of one block-wide step,
-   ``csrc/step_probe.cu``); the strips of the TTA batch that did work; B1
-   and B2 side by side over B in {1, 8, 16, 32, 64} x K in {512, 1024};
+   bytes/operations bound (the IoUs these inputs need) and the
+   dependent-chain bound (steps these inputs need x the measured time of
+   one dependent step, ``csrc/step_probe.cu``: a decision in one warp's
+   registers for B1, block-wide for B2 and B3), B1's own block-wide steps
+   (the tiles its scan walks, a diagnostic); the run fails where B1's
+   device time is under the larger of its bound and its chain; the strips
+   of the TTA batch that did work; B1 and B2 side by side over B in
+   {1, 8, 16, 32, 64} x K in {512, 1024};
 7. a torch.profiler breakdown of one serving, one protocol and one TTA
    batch: device-busy and idle share, the heaviest kernels, the NMS
    kernels' share;
@@ -51,6 +59,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 IOU_OPS = 14  # min/max/sub/clamp/mul/add/div/compare per IoU evaluation
 MODEL_TOL = 1e-3  # f32 raw maps, card vs CPU: summation order over ~60 convs
+CUT_IN_TILE = "max_keep cut inside a tile"  # phase-3 cases of B1
+ALL_DEAD = "an all-dead image"
 
 
 def log(*args):
@@ -68,9 +78,10 @@ def run(cmd):
 
 # --------------------------------------------------------------- inputs
 
-def candidates(seed, b, k, n_cls=8, shuffle=False):
+def candidates(seed, b, k, n_cls=8, shuffle=False, dead=False):
     """Clustered candidate boxes with the class offset already added, exact
-    score ties, zero-area boxes, dead tails and (for b > 1) an all-dead row."""
+    score ties, zero-area boxes, dead tails and (for b > 1) an all-dead row;
+    every row dead with ``dead``."""
     rng = np.random.default_rng(seed)
     hot = rng.uniform(0, 600, (b, 32, 2))
     xy = hot[np.arange(b)[:, None], rng.integers(0, 32, (b, k))] + rng.normal(0, 15, (b, k, 2))
@@ -85,6 +96,8 @@ def candidates(seed, b, k, n_cls=8, shuffle=False):
         scores[r, rng.integers(k // 4, k + 1):] = 0.0
     if b > 1:
         scores[-1] = 0.0
+    if dead:
+        scores[:] = 0.0
     if shuffle:
         order = rng.permutation(k)
         boxes, scores = boxes[:, order], scores[:, order]
@@ -127,6 +140,15 @@ def phase_build():
     for line in _build.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas:", line.strip().removeprefix("ptxas info    : "))
+    log("  nms_greedy dynamic shared memory by K (bytes; a block may hold 232448): "
+        + ", ".join(f"{k}: {greedy_smem(k)}" for k in (512, 1536, 4096, 8192)))
+
+
+def greedy_smem(k):
+    """B1's dynamic shared memory at K (``csrc/nms_greedy.cu::greedy_smem``;
+    ``ptxas -v`` counts static shared memory only): sort keys over K padded
+    to a power of two, five planes, the live words and the tile's rows."""
+    return 8 * max(32, 1 << (k - 1).bit_length()) + 4 * 5 * k + 4 * (-(-k // 32) + 34)
 
 
 def phase_kernels_vs_twins():
@@ -146,10 +168,20 @@ def phase_kernels_vs_twins():
         log(f"  nms_relation B={b} K={k} thr={thr} shuffled={shuffle}: "
             f"{int((want != 0).sum())} nonzero words, {n} mismatches")
 
+    greedy = (g.nms_greedy, g.greedy_nms)
     chunked = (m.matrix_nms_chunked, m.matrix_nms_chunked_plain)
     cases = {  # name -> [(kernel, twin, B, K, thr, shuffled, max_keep, what)]
-        "nms_greedy": [(g.nms_greedy, g.greedy_nms, *shape, MAX_KEEP, "") for shape in (
-            (256, 512, 0.45, False), (8, 4096, 0.65, True), (3, 1000, 0.5, True))],
+        "nms_greedy": [
+            (*greedy, 256, 512, 0.45, False, MAX_KEEP, "the serving B=256 shape"),
+            (*greedy, 64, 4096, 0.65, False, MAX_KEEP, "the protocol B=64 shape"),
+            (*greedy, 2, 1536, 0.45, True, MAX_KEEP, "the serving-TTA shape"),
+            (*greedy, 2, 8192, 0.65, False, MAX_KEEP, "the largest K"),
+            (*greedy, 2, 8192, 0.65, True, MAX_KEEP, "the largest K"),
+            (*greedy, 8, 4096, 0.65, True, MAX_KEEP, ""),
+            (*greedy, 3, 1000, 0.5, True, MAX_KEEP, ""),
+            (*greedy, 4, 512, 0.45, False, 20, CUT_IN_TILE),
+            (*greedy, 1, 512, 0.45, False, MAX_KEEP, ALL_DEAD),
+        ],
         "matrix_nms": [(m.matrix_nms, m.matrix_nms_plain, b, k, 0.45, shuffle, MAX_KEEP, "")
                        for b in (1, 8, 16) for k in (512, 1024) for shuffle in (False, True)],
         "matrix_nms_chunked": [
@@ -164,7 +196,10 @@ def phase_kernels_vs_twins():
     for name, shapes in cases.items():
         bad = 0
         for i, (kernel, twin, b, k, thr, shuffle, keep, what) in enumerate(shapes):
-            boxes, scores = candidates(1000 * i + k, b, k, shuffle=shuffle)
+            boxes, scores = candidates(1000 * i + k, b, k, shuffle=shuffle,
+                                       dead=what == ALL_DEAD)
+            if what == CUT_IN_TILE and not cut_inside_tile(boxes, scores, thr, keep):
+                fail(f"{name} B={b} K={k}: max_keep={keep} does not fall inside a tile")
             want = twin(boxes, scores, thr, keep)
             torch.cuda.synchronize()
             got = kernel(boxes, scores, thr, keep)
@@ -178,6 +213,55 @@ def phase_kernels_vs_twins():
     if any(mismatches.values()):
         fail(f"kernel/twin mismatches {mismatches}")
     return mismatches
+
+
+def keeper_ranks(scores, keep_idx, keep_valid):
+    """(B, max_keep) each keeper's position in B1's priority order (score
+    descending, ties to the lower index, the live candidates first); -1 in
+    empty slots."""
+    from yoloseries_tpu_torch.kernels.nms_greedy import priority_order
+
+    rank = torch.argsort(priority_order(scores), dim=1)
+    ranks = torch.take_along_dim(rank, keep_idx.clamp_min(0).long(), dim=1)
+    return torch.where(keep_valid, ranks, -1)
+
+
+def keeper_tiles(scores, keep_idx, keep_valid):
+    """(B, max_keep) the 32-wide tile of the priority order that holds each
+    keeper; -1 in empty slots."""
+    return keeper_ranks(scores, keep_idx, keep_valid) // 32
+
+
+def cut_inside_tile(boxes, scores, thr, keep):
+    """Does greedy's keeper number ``keep`` (0-based) share its tile with
+    the keeper before it in some image, so that a cut at ``keep`` keepers
+    stops inside a tile?"""
+    from yoloseries_tpu_torch.kernels.nms_greedy import greedy_nms
+
+    tiles = keeper_tiles(scores, *greedy_nms(boxes, scores, thr, keep + 1))
+    return bool(((tiles[:, keep] >= 0) & (tiles[:, keep] == tiles[:, keep - 1])).any())
+
+
+def design_steps(scores, keep_idx, keep_valid):
+    """B1's block-wide steps on these inputs: the tiles its scan walks in
+    the longest image, the live prefix of the priority order up to the tile
+    of the max_keep-th keeper. A diagnostic of the design, not a bound."""
+    full = keep_valid.all(dim=1)
+    last = keeper_tiles(scores, keep_idx, keep_valid)[:, -1] + 1
+    live = -(-(scores > 0).sum(dim=1) // 32)
+    return int(torch.where(full, last, live).max())
+
+
+def greedy_ious(scores, keep_idx, keep_valid):
+    """IoUs exact greedy cannot avoid on these inputs, summed over the
+    images: each keeper against every keeper before it (none of them may
+    suppress it), and one for each live candidate that an earlier keeper
+    suppresses (one IoU >= thr settles it), over the priority order up to
+    the max_keep-th keeper (nothing after it is looked at)."""
+    n = keep_valid.sum(dim=1)
+    last = keeper_ranks(scores, keep_idx, keep_valid)[:, -1] + 1
+    seen = torch.where(keep_valid.all(dim=1), last, (scores > 0).sum(dim=1))
+    return int((n * (n - 1) // 2 + seen - n).sum())
 
 
 def widen_head(model, img):
@@ -287,10 +371,13 @@ def phase_serving(model, card):
                          num_candidates=512)
     protocol = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
                           num_candidates=4096)
+    serving_tta = EvalConfig(conf_threshold=0.25, cls_threshold=0.25, iou_threshold=0.45,
+                             num_candidates=512, use_tta=True)
     tta = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
                      num_candidates=4096, use_tta=True)
     paths = [("serving B=8", serving, 8, "matrix_nms"),
              ("serving B=256", serving, 256, "nms_greedy"),
+             ("serving TTA B=2", serving_tta, 2, "nms_greedy"),  # K = 3 x 512, unsorted
              ("protocol B=64", protocol, 64, "nms_greedy"),
              ("tta B=2", tta, 2, "matrix_nms_chunked")]
     rng = np.random.default_rng(0)
@@ -370,18 +457,24 @@ def bound_ms(boxes, ious):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def step_us(threads, lo=2000, hi=20000):
-    """Measured time of one block-wide dependent step (publish to shared
-    memory, one barrier, read a neighbour) in a block of ``threads``:
-    ``csrc/step_probe.cu``, the launch cost cancelled by a difference."""
+def step_us(probe, lo=2000, hi=20000):
+    """Measured time of one dependent step, ``csrc/step_probe.cu``, the
+    launch cost cancelled by a difference. ``probe`` "warp": one dependent
+    decision in one warp's registers, as B1's tile resolution takes it; a
+    thread count: one block-wide step (publish to shared memory, one
+    barrier, read a neighbour) in a block of that many threads."""
     from yoloseries_tpu_torch.kernels import _build
 
-    probe = _build.load().yst_step_probe
+    lib = _build.load()
     out = torch.empty(1024, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(steps):
-        _build.check(probe(steps, threads, out.data_ptr(), stream), "yst_step_probe")
+        if probe == "warp":
+            err = lib.yst_warp_step_probe(steps, out.data_ptr(), stream)
+        else:
+            err = lib.yst_step_probe(steps, probe, out.data_ptr(), stream)
+        _build.check(err, "step probe")
 
     t_lo = cuda_ms(lambda: launch(lo), iters=10)
     t_hi = cuda_ms(lambda: launch(hi), iters=10)
@@ -433,14 +526,15 @@ def strip_inputs(boxes, scores, thr):
 
 
 def chain_steps(name, boxes, scores, thr, keepers, strips=None):
-    """Dependent block-wide steps these inputs need, and the block size the
-    kernel runs them in. Images run side by side (one block each), so the
-    longest image sets the chain. B1 decides one keeper per step; B2 runs
-    two dependent exchanges per fixpoint round (confirm publishes the kept
-    set, kill the undecided set); B3 runs the strips its data needs (up to
-    the one where the last carry fills) one after another."""
+    """Dependent steps these inputs need, and the probe of one step
+    (``step_us``). Images run side by side (one block each), so the longest
+    image sets the chain. B1 needs one dependent decision per keeper, a
+    warp-wide step each (a block need not meet between two). B2 runs two dependent block-wide
+    exchanges per fixpoint round (confirm publishes the kept set, kill the
+    undecided set); B3 runs the strips its data needs (up to the one where
+    the last carry fills) one after another."""
     if name == "nms_greedy":
-        return int(keepers.max()), min(1024, -(-scores.shape[1] // 32) * 32)
+        return int(keepers.max()), "warp"
     if name == "matrix_nms":
         return 2 * int(fixpoint_rounds(boxes, scores, thr).max()), -(-scores.shape[1] // 32) * 32
     steps = sum(2 * int(fixpoint_rounds(b, s, thr).max()) for b, s in strips)
@@ -504,11 +598,11 @@ def phase_timings(captured, launches, mismatches, card):
         f"work: {busy} of {tta[1].shape[0] * n_strips}")
     b2 = ("yoloseries_tpu_torch/csrc/nms_matrix.cu, yoloseries_tpu_torch/csrc/nms_relation.cu",
           "yoloseries_tpu/kernels/nms_matrix.py:151")
+    b1 = ("yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115")
     specs = [
-        ("nms_greedy", "serving B=256", g.nms_greedy, g.greedy_nms,
-         "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
-        ("nms_greedy", "protocol B=64", g.nms_greedy, g.greedy_nms,
-         "yoloseries_tpu_torch/csrc/nms_greedy.cu", "yoloseries_tpu/kernels/nms_pallas.py:115"),
+        ("nms_greedy", "serving B=256", g.nms_greedy, g.greedy_nms, *b1),
+        ("nms_greedy", "protocol B=64", g.nms_greedy, g.greedy_nms, *b1),
+        ("nms_greedy", "serving TTA B=2", g.nms_greedy, g.greedy_nms, *b1),
         ("matrix_nms", "serving B=8", m.matrix_nms, m.matrix_nms_plain, *b2),
         ("matrix_nms", "tta strip 0, B=2", m.matrix_nms, m.matrix_nms_plain, *b2),
         ("matrix_nms", "serving B=8, shuffled", m.matrix_nms, m.matrix_nms_plain, *b2),
@@ -518,7 +612,7 @@ def phase_timings(captured, launches, mismatches, card):
     counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
                 "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
     saved = {k: f.launches for k, f in counters.items()}
-    step = {}  # block size -> us per dependent step
+    step = {}  # probe ("warp" or a block size) -> us per dependent step
     rows = {}
     for name, label, kernel, twin, source, replaces in specs:
         boxes, scores, thr = captured[label]
@@ -534,22 +628,29 @@ def phase_timings(captured, launches, mismatches, card):
         device_ms, split = profiled_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP))
         plain = cuda_ms(lambda: twin(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
         keepers = kv.sum(dim=1)
-        # exact greedy needs one IoU row per keeper over the candidates it
-        # looks at, whatever the kernel computes beyond that (B2 builds the
-        # whole relation): all K, and for B3 the strips its data needs
-        seen = len(strips) * 1024 if name == "matrix_nms_chunked" else k
-        bound, by = bound_ms(boxes, int(keepers.sum()) * seen)
-        steps, threads = chain_steps(name, boxes, scores, thr, keepers, strips)
-        if threads not in step:
-            step[threads] = step_us(threads)
-            log(f"  one block-wide dependent step (csrc/step_probe.cu) at {threads} "
-                f"threads: {step[threads]:.4f} us [{card}]")
-        chain = steps * step[threads] * 1e-3
+        if name == "nms_greedy":
+            ious = greedy_ious(scores, ki, kv)
+        else:  # one IoU row per keeper over the candidates the fixpoint
+            # looks at (B2 builds the whole relation): all K, and for B3 the
+            # strips its data needs
+            ious = int(keepers.sum()) * (len(strips) * 1024 if name == "matrix_nms_chunked"
+                                         else k)
+        bound, by = bound_ms(boxes, ious)
+        steps, probe = chain_steps(name, boxes, scores, thr, keepers, strips)
+        if probe not in step:
+            step[probe] = step_us(probe)
+            what = ("warp-wide, a decision in registers" if probe == "warp"
+                    else f"block-wide, {probe} threads")
+            log(f"  one dependent step (csrc/step_probe.cu, {what}): {step[probe]:.4f} us "
+                f"[{card}]")
+        chain = steps * step[probe] * 1e-3
         binding = "dependent steps" if chain > bound else by
         row = {"shape": f"{label}: B={b} K={k} thr={thr}", "max_abs_err": err,
                "ms": ms, "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
                "bound_by": by, "chain_ms": chain, "chain_steps": steps,
-               "step_us": step[threads], "binding": binding}
+               "step_us": step[probe], "binding": binding, "ious": ious}
+        if name == "nms_greedy":
+            row["design_steps"] = design_steps(scores, ki, kv)
         if name in rows:  # a second shape of the same kernel on the path
             rows[name].setdefault("other_shapes", []).append(row)
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -559,10 +660,16 @@ def phase_timings(captured, launches, mismatches, card):
                           "mismatches": mismatches[name], **row, "library_ms": None}
         dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
         log(f"  {name} [{label}] B={b} K={k}: kernel {ms:.4f} ms (CUDA events), device time "
-            f"{dev} (profiler), plain twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), "
-            f"chain {chain:.6f} ms ({steps} steps x {step[threads]:.4f} us), binding: "
+            f"{dev} (profiler), plain twin {plain:.3f} ms, bound {bound:.6f} ms ({by}; "
+            f"{ious} IoUs), "
+            f"chain {chain:.6f} ms ({steps} steps x {step[probe]:.4f} us), binding: "
             f"{binding}, mean keepers {float(keepers.float().mean()):.1f}, "
             f"no library yardstick [{card}]")
+        if name == "nms_greedy":
+            log(f"    design steps (block-wide steps of the tile scan: tiles walked in the "
+                f"longest image; a diagnostic, not a bound): {row['design_steps']}")
+            if (ms if device_ms is None else device_ms) < max(bound, chain):
+                fail(f"{name} [{label}]: measured under the larger of its bound and its chain")
         log("    device time per call by kernel: "
             + ", ".join(f"{n} {t:.4f} ms" for n, t in list(split.items())[:6]))
     rows["matrix_nms"]["relation_mismatches"] = mismatches["nms_relation"]

@@ -59,11 +59,32 @@ def _check(kernel, twin, dev, b, k, thr, max_keep=300, shuffle=True, **kw):
     assert torch.equal(got[0].cpu(), want[0].cpu())
 
 
-@pytest.mark.parametrize("b,k,thr", [(256, 512, 0.45), (8, 4096, 0.65), (3, 1000, 0.5)])
-def test_greedy_kernel_matches_twin(cuda, b, k, thr):
+@pytest.mark.parametrize("b,k,thr,shuffle", [
+    (256, 512, 0.45, True), (8, 4096, 0.65, True), (3, 1000, 0.5, True),
+    (256, 512, 0.45, False), (64, 4096, 0.65, False),  # sorted: the in-block sort skipped
+    (2, 1536, 0.45, True),  # the serving-TTA shape: three branches, unsorted
+    (2, 8192, 0.65, False), (2, 8192, 0.65, True),  # the largest K: 225 KB of shared memory
+])
+def test_greedy_kernel_matches_twin(cuda, b, k, thr, shuffle):
     n = nms_greedy.nms_greedy.launches
-    _check(nms_greedy.nms_greedy, nms_greedy.greedy_nms, cuda, b, k, thr)
+    _check(nms_greedy.nms_greedy, nms_greedy.greedy_nms, cuda, b, k, thr, shuffle=shuffle)
     assert nms_greedy.nms_greedy.launches == n + 1
+
+
+def test_greedy_kernel_cuts_inside_a_tile_and_skips_dead_images(cuda):
+    """max_keep = 20 falls inside a 32-wide tile of image 0's order; images
+    1 and 3 are all dead."""
+    boxes, scores = candidates(7, 4, 512, shuffle=False)
+    scores[1] = 0.0
+    full = nms_greedy.greedy_nms(boxes, scores, 0.45, 300)
+    rank = torch.argsort(nms_greedy.priority_order(scores), dim=1)
+    tiles = rank[0, full[0][0, :21].long()] // 32
+    assert bool(full[1][0, :21].all()) and tiles[19] == tiles[20]
+    want = nms_greedy.greedy_nms(boxes, scores, 0.45, 20)
+    got = nms_greedy.nms_greedy(boxes.to(cuda), scores.to(cuda), 0.45, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+    assert bool(got[1][0].all()) and not got[1][1].any() and not got[1][3].any()
 
 
 @pytest.mark.parametrize("b,k,shuffle", [

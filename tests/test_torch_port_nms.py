@@ -90,6 +90,57 @@ def test_greedy_twin_matches_pallas(b, k, thr, shuffle, n_cls):
     assert port_greedy.nms_greedy.launches == 0  # CPU tensors take the twin
 
 
+def _keeper_positions(scores, keep_idx, keep_valid):
+    """Priority positions (greedy's order) of each image's keepers."""
+    rank = torch.argsort(port_greedy.priority_order(torch.from_numpy(scores)), dim=1)
+    return [rank[r, keep_idx[r][keep_valid[r]].long()].numpy() for r in range(len(scores))]
+
+
+def _tile_case(case, tile):
+    """(boxes, scores, thr, max_keep) of one tile-scan test input. Every
+    case has exact ties, zero-area boxes, dead tails and an all-dead row, at
+    K not a multiple of 32."""
+    if case in ("sorted", "shuffled"):
+        boxes, scores = make_candidates(71, 3, 200, case == "shuffled", n_cls=2)
+        return boxes, scores, 0.45, 300
+    if case == "duplicates":  # exact copies, with equal and with lower scores
+        boxes, scores = make_candidates(72, 3, 150, True)
+        boxes[:, 100:140] = boxes[:, 10:50]
+        scores[:, 100:120] = scores[:, 10:30]
+        scores[:, 120:140] = scores[:, 30:50] * np.float32(0.5)
+        return boxes, scores, 0.5, 300
+    # max_keep cut mid-tile: the last keeper shares its tile with a later one
+    boxes, scores = make_candidates(73, 3, 230, True)
+    full = port_greedy.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.65, 300)
+    tiles = _keeper_positions(scores, *full)[0] // tile
+    cut = next(m for m in range(len(tiles) // 2, len(tiles)) if tiles[m - 1] == tiles[m])
+    return boxes, scores, 0.65, cut
+
+
+@pytest.mark.parametrize("tile", [32, 8])
+@pytest.mark.parametrize("case", ["sorted", "shuffled", "duplicates", "cut mid-tile"])
+def test_tiled_twin_matches_pallas_and_greedy(case, tile):
+    """The kernel's design (priority order, tiles resolved in order, forward
+    suppression) as a plain twin, against the Pallas kernel and the argmax
+    loop, index for index."""
+    boxes, scores, thr, max_keep = _tile_case(case, tile)
+    ref = pallas_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), thr,
+                            max_keep=max_keep, interpret=True)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = port_greedy.greedy_nms_tiled_plain(tb, ts, thr, max_keep, tile=tile)
+    _assert_same(got, ref)
+    _assert_same(port_greedy.greedy_nms(tb, ts, thr, max_keep), ref)
+    assert not got[1][-1].any()  # the all-dead row keeps nothing
+    if case == "cut mid-tile":
+        assert got[1][0].all()  # image 0 stopped at max_keep, inside a tile
+
+
+def test_tiled_twin_on_an_all_dead_batch():
+    boxes, _ = make_candidates(74, 2, 64, False)
+    got = port_greedy.greedy_nms_tiled_plain(torch.from_numpy(boxes), torch.zeros(2, 64), 0.5, 10)
+    assert not got[1].any() and (got[0] == -1).all()
+
+
 @pytest.mark.parametrize("b,k,shuffle,n_cls", [
     (1, 512, False, 1),
     (4, 256, True, 1),
@@ -278,6 +329,33 @@ def test_nms_candidates_matches_jax(b, k, thr):
         torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(cls),
         iou_threshold=thr, max_keep=300, merge_boxes=True).numpy()
     assert got.shape == (b, 300, 6)
+    assert (got[..., 4] > 0).any()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_nms_candidates_on_tta_branches_takes_greedy(monkeypatch):
+    """Three separately sorted branches of 512 candidates concatenated, as
+    the TTA evaluator hands them over at the serving config: K = 1536, not
+    sorted as a whole, goes to the greedy kernel's branch (B1)."""
+    parts = [make_candidates(90 + i, 3, 512, False, n_cls=4) for i in range(3)]
+    boxes = np.concatenate([p[0][:2] for p in parts], axis=1)  # two live images
+    scores = np.concatenate([p[1][:2] for p in parts], axis=1)
+    cls = np.random.default_rng(93).integers(0, 4, scores.shape).astype(np.float32)
+    assert (np.diff(scores, axis=1) > 0).any()  # unsorted as a whole
+    calls = []
+
+    def record(b, s, thr, keep):
+        calls.append(tuple(s.shape))
+        return port_greedy.nms_greedy(b, s, thr, keep)
+
+    monkeypatch.setattr(port_nms, "nms_greedy", record)
+    ref = np.asarray(jax_nms_candidates(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cls),
+        iou_threshold=0.45, max_keep=300, merge_boxes=True, use_pallas=False))
+    got = port_nms.nms_candidates(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(cls),
+        iou_threshold=0.45, max_keep=300, merge_boxes=True).numpy()
+    assert calls == [(2, 1536)]
     assert (got[..., 4] > 0).any()
     np.testing.assert_array_equal(got, ref)
 

@@ -104,6 +104,7 @@ PROTOCOL = dict(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
     (SERVING, False, True),
     (PROTOCOL, False, True),
     (PROTOCOL, True, True),
+    (SERVING, True, True),   # three sorted branches concatenated: unsorted NMS input
     (SERVING, True, False),
 ])
 def test_evaluator_matches_jax(weights, kw, tta, fused):

@@ -1,5 +1,5 @@
-// Latency probe of one block-wide dependent step, for the NMS kernels'
-// dependent-chain bound.
+// Latency probes of one dependent step, for the NMS kernels' dependent-chain
+// bounds: block-wide (B2, B3) and warp-wide (B1).
 //
 // Greedy NMS decides keepers one after another: a block-parallel kernel
 // (one block per image, as nms_greedy.cu and nms_matrix.cu are) needs at
@@ -10,11 +10,18 @@
 // its neighbour's value. Two buffers alternate, so one barrier per step is
 // enough. steps x (time of one step) bounds the chain from below.
 //
-// Measurement only: chip_smoke.py times it; no serving path launches it.
+// A kernel that decides keepers inside one warp, between two barriers (B1's
+// tile scan), still needs one dependent decision per keeper. The warp probe
+// measures that decision as B1's tile resolution takes it, every lane alike:
+// a test of a row against the kept mask and the mask updated, the row brought
+// in by a __shfl_sync that does not depend on the chain.
+//
+// Measurement only: chip_smoke.py times them; no serving path launches them.
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kMaxThreads)
 step_probe_kernel(int steps, float* __restrict__ out) {
@@ -31,6 +38,18 @@ step_probe_kernel(int steps, float* __restrict__ out) {
   out[tid] = v;
 }
 
+__global__ void __launch_bounds__(32)
+warp_step_probe_kernel(int steps, unsigned* __restrict__ out) {
+  const unsigned lane = threadIdx.x;
+  const unsigned rows = lane * 0x9e3779b9u;
+  unsigned v = lane;
+  for (int s = 0; s < steps; ++s) {
+    const unsigned row = __shfl_sync(kFull, rows, s & 31);
+    v = (row & v) == 0u ? v | (1u << (s & 31)) : v;
+  }
+  out[lane] = v;
+}
+
 }  // namespace
 
 extern "C" int yst_step_probe(int steps, int threads, float* out, cudaStream_t stream) {
@@ -38,5 +57,10 @@ extern "C" int yst_step_probe(int steps, int threads, float* out, cudaStream_t s
     return (int)cudaErrorInvalidValue;
   }
   step_probe_kernel<<<1, threads, 0, stream>>>(steps, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yst_warp_step_probe(int steps, unsigned* out, cudaStream_t stream) {
+  warp_step_probe_kernel<<<1, 32, 0, stream>>>(steps, out);
   return (int)cudaGetLastError();
 }

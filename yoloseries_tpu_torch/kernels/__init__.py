@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (sources in ``../csrc``) with their plain
 PyTorch twins and launch counters.
 
-* ``nms_greedy.nms_greedy``: streaming greedy NMS, K <= 8192.
+* ``nms_greedy.nms_greedy``: greedy NMS as one ordered tile scan, input in
+  any order, K <= 8192.
 * ``nms_matrix.matrix_nms``: greedy NMS as a suppression-bitmask fixpoint,
   K <= 1024; ``nms_matrix.matrix_nms_chunked`` drives it at any K.
 

@@ -42,7 +42,8 @@ _ENTRIES = {
     "yst_nms_relation": "ppiifpp",
     "yst_nms_matrix": "ppiifipppp",
     "yst_nms_matrix_chunked": "ppiiifipppp",
-    "yst_step_probe": "iipp",  # latency probe, measurement only
+    "yst_step_probe": "iipp",  # latency probes, measurement only
+    "yst_warp_step_probe": "ipp",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -29,7 +29,7 @@ import torch
 
 from ..ops.iou import pairwise_iou
 from . import _build
-from .nms_greedy import check_cuda_inputs, check_nms_inputs, launch_nms
+from .nms_greedy import check_cuda_inputs, check_nms_inputs, launch_nms, priority_order
 
 __all__ = ["MATRIX_MAX_K", "matrix_fixpoint_plain", "matrix_nms", "matrix_nms_chunked",
            "matrix_nms_chunked_plain", "matrix_nms_plain", "nms_relation",
@@ -134,7 +134,7 @@ def _sorted_candidates(boxes: torch.Tensor, scores: torch.Tensor, chunk: int):
     pad = (-scores.shape[1]) % chunk
     boxes = torch.nn.functional.pad(boxes.float(), (0, 0, 0, pad))
     scores = torch.nn.functional.pad(scores.float(), (0, pad))  # 0 = dead
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    order = priority_order(scores)
     return (torch.take_along_dim(boxes, order[..., None], dim=1),
             torch.take_along_dim(scores, order, dim=1), order)
 
