@@ -36,6 +36,22 @@ Phases (any failure exits non-zero and prints no result line):
 7. a torch.profiler breakdown of one serving, one protocol and one TTA
    batch: device-busy and idle share, the heaviest kernels, the NMS
    kernels' share;
+8. training: the port's ``Trainer`` on a seeded synthetic folder set of PNGs
+   (written here, PIL; labels as txt), YOLOv5s nc=80 at 640, f32, the
+   preset's batch 64 x accumulate 2 (128 images an update), augmentation
+   closed, warmup active: 8 updates, then ``evaluate()`` over 2 val batches
+   of 64 at the protocol config, whose NMS is B1 (``nms_greedy``, K=4096).
+   The launch counters are zeroed before ``train()`` and read after
+   ``evaluate()``; B1 is held index for index against its twin at the val
+   pass's own candidates and timed there. Prints ms per update (CUDA events
+   between update ends, the median after the first two), img/s, peak
+   memory, every update's loss dict, mAP and mAP50, and the phase's wall
+   time; fails on a loss that is not finite. Then one update of YOLOv5s at
+   256 px (B=4, accumulate 2, warmup active) on the card and on the CPU
+   from the same weights and batch (tot_loss within 1e-3 relative, every
+   parameter within 1e-3 * max(1, |p|)), and a profiler split of one
+   training update (convolution forward and backward, BN, the loss and its
+   winner step, the optimizer, the EMA, the H2D copy);
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
@@ -59,6 +75,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 IOU_OPS = 14  # min/max/sub/clamp/mul/add/div/compare per IoU evaluation
 MODEL_TOL = 1e-3  # f32 raw maps, card vs CPU: summation order over ~60 convs
+TRAIN_TOL = 1e-3  # one f32 update, card vs CPU: the same summation orders, then SGD
 CUT_IN_TILE = "max_keep cut inside a tile"  # phase-3 cases of B1
 ALL_DEAD = "an all-dead image"
 
@@ -693,12 +710,15 @@ KERNEL_GROUPS = (  # (group, substrings of the device event name), first match w
 
 def _device_events(prof):
     """(microseconds, name) of every device-side event (kernels, copies),
-    each counted once."""
+    each counted once. The device-side copies of ``record_function`` ranges
+    are left out: they span kernels already counted."""
     from torch.autograd import DeviceType
 
+    ranges = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
     out = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA or "Activity Buffer" in e.key:
+        if (getattr(e, "device_type", None) != DeviceType.CUDA or "Activity Buffer" in e.key
+                or e.key in ranges):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -757,6 +777,423 @@ def phase_profile(model, card):
             log(f"  {t / busy * 100:5.1f}%  {t / 1e3:8.3f} ms  {name[:90]}")
 
 
+# --------------------------------------------------------------- training
+
+TRAIN_UPDATES = 8
+TRAIN_BATCH, TRAIN_ACCUMULATE = 64, 2  # the preset's batch_size 64, accumulate_loss_step 128
+
+
+def synthetic_folder(root, n, seed):
+    """``n`` PNGs of COCO-like sizes (the long side ``size``) holding 1-12
+    filled boxes of 80 classes on a smooth background, their txt labels,
+    and names.txt. Returns (img_dir, lab_dir, names)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    img_dir, lab_dir = root / "img", root / "lab"
+    img_dir.mkdir(parents=True)
+    lab_dir.mkdir()
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(30, 226, (80, 3), dtype=np.uint8)
+    jobs = []
+    for i in range(n):
+        h, w = [(480, 640), (640, 480), (427, 640), (640, 640)][int(rng.integers(0, 4))]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (60 + 40 * np.sin(yy / rng.uniform(20, 90)) * np.cos(xx / rng.uniform(20, 90)))
+        img = np.repeat(base[..., None], 3, axis=2).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(1, 13))):
+            bw, bh = rng.integers(16, w // 2), rng.integers(16, h // 2)
+            x1, y1 = rng.integers(0, w - bw), rng.integers(0, h - bh)
+            c = int(rng.integers(0, 80))
+            img[y1:y1 + bh, x1:x1 + bw] = colors[c]
+            lines.append(f"{c} {x1} {y1} {x1 + bw} {y1 + bh}")
+        jobs.append((img, img_dir / f"{i:05d}.png", lab_dir / f"{i:05d}.txt", lines))
+
+    def write(job):
+        img, img_path, lab_path, lines = job
+        Image.fromarray(img).save(img_path, compress_level=1)
+        lab_path.write_text("\n".join(lines) + "\n")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    names = root / "names.txt"
+    names.write_text("".join(f"{c} class{c}\n" for c in range(80)))
+    return img_dir, lab_dir, names
+
+
+def train_hyp(updates):
+    """The preset's training keys (``configs/presets/train_yolov5.yaml``,
+    written out: this script reads no YAML) for a run of ``updates`` one-update
+    epochs, augmentation closed for all of them."""
+    return {
+        "input_img_size": [640, 640], "batch_size": TRAIN_BATCH,
+        "accumulate_loss_step": TRAIN_BATCH * TRAIN_ACCUMULATE, "random_seed": 7,
+        "num_workers": 8, "total_epoch": updates, "no_data_aug_epoch": updates,
+        "do_ema": True, "save_ckpt_every": 1000, "optimizer": "sgd",
+        "basic_lr_per_img": 0.000625, "weight_decay": 0.0001, "momentum": 0.937,
+        "scheduler_type": "linear", "lr_max_ds_scale": 0.001, "do_warmup": True,
+        "warmup_epoch": 3, "warmup_bias_max_lr": 0.1, "warmup_momentum": 0.8,
+        "use_focal_loss": True, "compute_metric_conf_threshold": 0.001,
+        "compute_metric_iou_threshold": 0.65, "compute_metric_cls_threshold": 0.001,
+    }
+
+
+def settle_bn(model, img):
+    """Set every BN layer's running stats to its batch stats on ``img``."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None  # a cumulative mean: after one batch, that batch's stats
+    with torch.no_grad():
+        model.train()(img)
+    for m, momentum in zip(bns, saved):
+        m.momentum = momentum
+
+
+def timed_updates(trainer):
+    """Wrap the trainer's step so that a CUDA event is recorded at the end
+    of every update (no host sync), with the host's clock at the step's
+    entry and exit. Returns (events, host (enter, exit) pairs)."""
+    ends, host = [], []
+    size = tuple(trainer.cfg.input_size)
+    inner = trainer._step_fn_for(size)
+
+    def step(state, batch):
+        t0 = time.perf_counter()
+        out = inner(state, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        host.append((t0, time.perf_counter()))
+        return out
+
+    trainer._step_fns[size] = step
+    return ends, host
+
+
+def step_alone_ms(trainer, host_batch, n=3):
+    """ms per update of the train step alone, on one batch already on the
+    card (no loader, no copy): CUDA events around ``n`` updates after one
+    untimed."""
+    step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
+    batch = trainer._device_batch(host_batch)
+    trainer.state, _ = step(trainer.state, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        trainer.state, _ = step(trainer.state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def loader_alone_ms(trainer, n=3):
+    """ms per batch of a fresh loader over the train set, built as the
+    Trainer builds it, with nothing else running: the consumer takes each
+    batch at once, so batches arrive as fast as the loader makes them (the
+    median gap between arrivals after the first batch)."""
+    from yoloseries_tpu_torch.data.loader import DataLoader
+
+    cfg = trainer.cfg
+    loader = DataLoader(trainer.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
+                        max_labels=cfg.max_labels, seed=cfg.seed + 1, workers=cfg.num_workers)
+    try:
+        arrivals = []
+        for _ in range(n + 1):
+            next(loader)
+            arrivals.append(time.perf_counter())
+    finally:
+        loader.stop()
+    return float(np.median(np.diff(arrivals))) * 1e3
+
+
+def step_syncs(trainer, host_batch):
+    """Where one update makes the host wait for the card
+    (``torch.cuda.set_sync_debug_mode``: a warning per synchronizing call)."""
+    import traceback
+    import warnings
+
+    step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
+    batch = trainer._device_batch(host_batch)
+    torch.cuda.synchronize()
+    where = []
+
+    def note(message, *args, **kwargs):  # the innermost line of the port that called
+        if "prototype feature" in str(message):  # said once when the mode is set
+            return
+        frames = [f for f in traceback.extract_stack()[:-1] if "yoloseries_tpu_torch" in f.filename]
+        where.append(f"{frames[-1].filename.split('yoloseries_tpu_torch/')[-1]}:"
+                     f"{frames[-1].lineno}" if frames else str(message)[:80])
+
+    with warnings.catch_warnings():  # restores showwarning
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.state, _ = step(trainer.state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return where
+
+
+def h2d_ms(trainer, host_batch, n=3):
+    """The ``Trainer``'s copy of one batch to the card on an idle card:
+    host ms of the call (pinning, enqueue) and host ms until the copy has
+    landed (medians of ``n``)."""
+    calls, landed = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._device_batch(host_batch)
+        calls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        landed.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(calls)), float(np.median(landed))
+
+
+def card_vs_cpu_update(card):
+    """One update of YOLOv5s at 256 px, B=4 x accumulate 2, warmup active,
+    on the card and on the CPU from the same weights and batch."""
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    ann = np.full((8, 32, 6), -1.0, np.float32)
+    for b in range(8):
+        n = int(rng.integers(1, 12))
+        xy = rng.uniform(0, 200, (n, 2))
+        ann[b, :n, :2] = xy
+        ann[b, :n, 2:4] = np.minimum(xy + rng.uniform(8, 120, (n, 2)), 256)
+        ann[b, :n, 4] = rng.integers(0, 80, n)
+        ann[b, :n, 5] = b
+    sd = create_model("yolov5s", num_class=80, device="cpu", seed=1).state_dict()
+    loss_fn, _ = get_family("yolov5s").make_loss({}, 80, (256, 256))
+    cfg = OptimizerConfig(batch_size=4, steps_per_epoch=1, warmup_steps_override=100)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(create_model("yolov5s", 80, device="cpu"), cfg,
+                                   state_dict=sd, device=dev)
+        step = make_train_step(loss_fn, accumulate=2)
+        batch = {"img": torch.from_numpy(img).to(dev), "ann": torch.from_numpy(ann).to(dev)}
+        state, metrics = step(state, batch)
+        out[dev] = (float(metrics["tot_loss"]),
+                    {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst = max(float(((out["cuda"][1][k] - p).abs() / p.abs().clamp_min(1.0)).max())
+                for k, p in out["cpu"][1].items())
+    log(f"card vs CPU, one update of yolov5s at 256 px, B=4 x 2: tot_loss {out['cuda'][0]:.6f} "
+        f"vs {out['cpu'][0]:.6f} (relative {rel:.2e}), largest parameter difference "
+        f"{worst:.2e} x max(1, |p|) (tolerance {TRAIN_TOL}) [{card}]")
+    if not (rel <= TRAIN_TOL and worst <= TRAIN_TOL):
+        fail("one update on the card disagrees with the CPU")
+
+
+TRAIN_GROUPS = (  # (group, how it is found): CPU ops or ranges, device time with children
+    ("convolution forward", ("aten::cudnn_convolution",)),
+    ("convolution backward", ("aten::convolution_backward",)),
+    ("BN (forward + backward)", ("aten::cudnn_batch_norm", "aten::cudnn_batch_norm_backward",
+                                 "aten::native_batch_norm", "aten::native_batch_norm_backward")),
+    ("loss forward", ("train.loss",)),
+    ("  of it the winner step", ("yolov5_loss.winners",)),
+    ("optimizer", ("train.optimizer",)),
+    ("EMA", ("train.ema",)),
+)
+
+
+def profile_update(trainer, card, host):
+    """Device time of one training update by part (torch.profiler), the
+    copy of ``host`` to the card included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, _ = step(trainer.state, trainer._device_batch(host))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_events(prof)
+    busy = sum(t for t, _ in kernels) / 1e3
+    if busy == 0:
+        log("training update: the profiler recorded no device time (not measured)")
+        return None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    split = {}
+    for group, names in TRAIN_GROUPS:
+        split[group] = sum(e.device_time_total for e in events if e.name in names) / 1e3
+    split["H2D copy"] = sum(t for t, n in kernels if "Memcpy HtoD" in n) / 1e3
+    counted = sum(v for k, v in split.items() if not k.startswith("  "))
+    split["other (SiLU, concat, loss backward, ...)"] = busy - counted
+    log(f"training update (B={TRAIN_BATCH} x {TRAIN_ACCUMULATE} at 640, profiled): wall "
+        f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{(1 - busy / wall_ms) * 100:.1f}% [{card}]")
+    log("  by part: " + ", ".join(f"{k.strip()} {v:.1f} ms ({v / busy * 100:.1f}%)"
+                                  for k, v in split.items()))
+    for t, name in kernels[:6]:
+        log(f"  {t / busy / 10:5.1f}%  {t / 1e3:8.3f} ms  {name[:90]}")
+    for t, name in kernels:
+        if "Memcpy" in name:
+            log(f"  copy: {t / 1e3:8.3f} ms  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, **split}
+
+
+def phase_training(card):
+    import tempfile
+    from pathlib import Path
+
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.data.loader import collate_batch
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+    from yoloseries_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
+                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        train_dirs = synthetic_folder(tmp / "train", TRAIN_BATCH * TRAIN_ACCUMULATE, seed=0)
+        val_dirs = synthetic_folder(tmp / "val", 2 * TRAIN_BATCH, seed=1)
+        log(f"synthetic folder set: {TRAIN_BATCH * TRAIN_ACCUMULATE} train and "
+            f"{2 * TRAIN_BATCH} val PNGs in {time.perf_counter() - t0:.1f} s")
+        cfg = TrainConfig.from_hyp(train_hyp(TRAIN_UPDATES), model="yolov5s",
+                                   output_dir=str(tmp / "run"))
+        trainer = Trainer(cfg, train_dirs[:2], val_dirs=val_dirs[:2], names_path=train_dirs[2],
+                          log_fn=lambda *a: log("  trainer:", *a), device="cuda")
+        try:
+            # random weights put every score under the protocol's conf .001
+            # and evaluate() would hand B1 nothing live: on eight val images,
+            # set the BN running stats to their batch stats (train and eval
+            # mode then see alike maps) and widen the head as phase 4 does;
+            # the EMA restarts from these weights
+            calib = collate_batch([trainer.val_dataset.get(i, np.random.default_rng(i))
+                                   for i in range(8)], cfg.input_size, cfg.max_labels)["img"]
+            calib = torch.from_numpy(calib).cuda().permute(0, 3, 1, 2).float() / 255
+            model = trainer.state.model
+            settle_bn(model, calib)
+            widen_head(model.eval(), calib)
+            trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            ends, host = timed_updates(trainer)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with record_nms_inputs() as rec:
+                t0 = time.perf_counter()
+                result = trainer.evaluate()
+                eval_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            per_update = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+            ms = float(np.median(per_update[1:]))  # updates 3.. (the first two: cuDNN tuning)
+            # host clock: between one step's exit and the next one's entry the
+            # Trainer waits for the loader and copies the batch; inside the
+            # step it enqueues the update (and waits wherever the step syncs)
+            between = float(np.median([(b[0] - a[1]) * 1e3 for a, b in zip(host, host[1:])][1:]))
+            inside = float(np.median([(b - a) * 1e3 for a, b in host[2:]]))
+            for i, h in enumerate(trainer.history):
+                log(f"  update {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(h.items())))
+            bad = [h for h in trainer.history
+                   if not all(np.isfinite(v) for v in h.values())]
+            if len(trainer.history) != TRAIN_UPDATES or bad:
+                fail(f"training: {len(trainer.history)} updates, non-finite losses {bad}")
+            log(f"training yolov5s 640 f32, B={TRAIN_BATCH} x {TRAIN_ACCUMULATE}: "
+                f"{ms:.1f} ms per update (median of updates 3-{TRAIN_UPDATES}, CUDA events "
+                f"between update ends), {TRAIN_BATCH * TRAIN_ACCUMULATE / ms * 1e3:.1f} img/s, "
+                f"peak {peak:.2f} GiB, {TRAIN_UPDATES} updates in {train_s:.1f} s (update 2: "
+                f"{per_update[0]:.1f} ms) [{card}]")
+            log(f"  host, median of updates 3-{TRAIN_UPDATES}: {between:.1f} ms between steps "
+                f"(loader wait, pinning, copy enqueue), {inside:.1f} ms inside the step [{card}]")
+            log(f"evaluate() on the EMA weights, 2 batches of {TRAIN_BATCH}: mAP "
+                f"{result['map']:.6f} mAP50 {result['map50']:.6f} in {eval_s:.1f} s; launches "
+                f"{launches} [{card}]")
+            if launches["nms_greedy"] == 0:
+                fail("evaluate() did not launch nms_greedy")
+            mismatches, kept = 0, 0
+            for boxes, scores, thr in rec["nms_greedy"]:
+                want = g.greedy_nms(boxes, scores, thr, MAX_KEEP)
+                got = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
+                torch.cuda.synchronize()
+                mismatches += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+                kept += int(want[1].sum())
+            live = sum(int((s > 0).sum()) for _, s, _ in rec["nms_greedy"])
+            log(f"  nms_greedy at the val pass's {len(rec['nms_greedy'])} candidate sets "
+                f"{tuple(rec['nms_greedy'][0][1].shape)}: {live} live candidates, {kept} kept, "
+                f"{mismatches} mismatches")
+            if mismatches:
+                fail("nms_greedy disagrees with its twin in evaluate()")
+            if kept == 0:
+                fail("evaluate() handed nms_greedy no live candidate")
+            # the parts of an update apart, each on a quiet host: the loader
+            # alone, then (the Trainer's loader stopped) the copy, the step
+            # on a batch already on the card, and its host syncs
+            loader = loader_alone_ms(trainer)
+            host_batch = next(trainer.train_loader)
+            trainer.train_loader.stop()
+            h2d_call, h2d_landed = h2d_ms(trainer, host_batch)
+            alone = step_alone_ms(trainer, host_batch)
+            syncs = step_syncs(trainer, host_batch)
+            log(f"  apart, on a quiet host: the loader alone {loader:.1f} ms per batch of "
+                f"{TRAIN_BATCH * TRAIN_ACCUMULATE} ({cfg.num_workers} threads); the Trainer's "
+                f"copy of one batch ({host_batch['img'].nbytes / 2**20:.0f} MiB) {h2d_call:.1f} "
+                f"ms to return (pinning, enqueue), {h2d_landed:.1f} ms until landed; the step "
+                f"alone on a batch already on the card {alone:.1f} ms per update "
+                f"({TRAIN_BATCH * TRAIN_ACCUMULATE / alone * 1e3:.1f} img/s), {len(syncs)} host "
+                f"syncs in one update [{card}]")
+            for where in syncs[:5]:
+                log(f"    sync: {where}")
+            profile = profile_update(trainer, card, host_batch)
+        finally:
+            trainer.close()
+    card_vs_cpu_update(card)
+    wall = time.perf_counter() - t_phase
+    log(f"training phase: {wall:.1f} s [{card}]")
+    return {"ms_per_update": ms, "img_per_s": TRAIN_BATCH * TRAIN_ACCUMULATE / ms * 1e3,
+            "peak_gib": peak, "map": result["map"], "map50": result["map50"],
+            "host_between_ms": between, "host_inside_ms": inside, "loader_ms": loader,
+            "step_alone_ms": alone, "step_syncs": len(syncs), "h2d_call_ms": h2d_call,
+            "h2d_landed_ms": h2d_landed,
+            "launches": launches, "captured": rec["nms_greedy"][0], "profile": profile,
+            "phase_s": wall}
+
+
+def train_val_row(train, card):
+    """B1 at the training val pass's candidates: times beside the plain
+    twin, the bound and the chain, as in phase 6."""
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+
+    boxes, scores, thr = train["captured"]
+    saved = g.nms_greedy.launches
+    ki, kv = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
+    ms = cuda_ms(lambda: g.nms_greedy(boxes, scores, thr, MAX_KEEP), iters=20)
+    device_ms, _ = profiled_ms(lambda: g.nms_greedy(boxes, scores, thr, MAX_KEEP))
+    plain = cuda_ms(lambda: g.greedy_nms(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
+    g.nms_greedy.launches = saved
+    bound, by = bound_ms(boxes, greedy_ious(scores, ki, kv))
+    chain = int(kv.sum(dim=1).max()) * step_us("warp") * 1e-3
+    b, k = scores.shape
+    log(f"  nms_greedy [train val B={b}] K={k}: kernel {ms:.4f} ms (CUDA events), device time "
+        f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (profiler), plain "
+        f"twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), chain {chain:.6f} ms, "
+        f"launches in evaluate() {train['launches']['nms_greedy']} [{card}]")
+    return {"shape": f"train val B={b} K={k} thr={thr}",
+            "launches": train["launches"]["nms_greedy"],
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "chain_ms": chain}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script drives the port on the card")
@@ -783,6 +1220,16 @@ def main():
     rows = phase_timings(captured, launches, mismatches, card)
     log("== 7. where the device time goes")
     phase_profile(model, card)
+    del model
+    log("== 8. training")
+    train = phase_training(card)
+    b1 = next(r for r in rows if r["name"] == "nms_greedy")
+    b1["train_val"] = train_val_row(train, card)
+    b1["launches"] += train["launches"]["nms_greedy"]
+    b1["training"] = {k: train[k] for k in (
+        "ms_per_update", "img_per_s", "peak_gib", "map", "map50", "host_between_ms",
+        "host_inside_ms", "loader_ms", "step_alone_ms", "step_syncs", "h2d_call_ms",
+        "h2d_landed_ms", "profile", "phase_s")}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

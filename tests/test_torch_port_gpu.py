@@ -157,3 +157,80 @@ def test_cuda_evaluator_matches_cpu(cuda):
     # near-equal confs may trade slots: compare each image's sorted confs
     conf = [np.sort(o[..., 4].numpy(), axis=1) for o in outs]
     np.testing.assert_allclose(conf[1], conf[0], atol=1e-4)
+
+
+def _train_batch(n, size, nc, seed=0):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    ann = np.full((n, 8, 6), -1.0, np.float32)
+    for b in range(n):
+        k = int(rng.integers(1, 8))
+        xy = rng.uniform(0, size * 0.7, (k, 2))
+        ann[b, :k, :2] = xy
+        ann[b, :k, 2:4] = np.minimum(xy + rng.uniform(6, size / 2, (k, 2)), size)
+        ann[b, :k, 4] = rng.integers(0, nc, k)
+        ann[b, :k, 5] = b
+    return torch.from_numpy(img), torch.from_numpy(ann)
+
+
+def test_train_update_on_card_matches_cpu(cuda):
+    """One update (B=4 x accumulate 2, warmup active) of a narrow YOLOv5 on
+    the card and on the CPU from the same weights: tot_loss within 1e-3
+    relative, every parameter within 1e-3 * max(1, |p|) (f32, TF32 off;
+    the sums run in other orders)."""
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import YOLOv5, YOLOv5Spec
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = YOLOv5Spec(8, (1, 1, 1, 1), 1)
+    sd = YOLOv5(3, spec, generator=torch.Generator().manual_seed(0)).state_dict()
+    loss_fn, _ = get_family("yolov5s").make_loss({}, 3, (64, 64))
+    img, ann = _train_batch(8, 64, 3)
+    out = {}
+    for dev in ("cpu", cuda):
+        state = create_train_state(YOLOv5(3, spec), OptimizerConfig(batch_size=4), state_dict=sd,
+                                   device=dev)
+        state, metrics = make_train_step(loss_fn, accumulate=2)(
+            state, {"img": img.to(dev), "ann": ann.to(dev)})
+        out[str(dev)] = (float(metrics["tot_loss"]),
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu)
+    for k, p in p_cpu.items():
+        assert float(((p_gpu[k] - p).abs() / p.abs().clamp_min(1.0)).max()) <= 1e-3, k
+
+
+def test_trainer_evaluate_launches_nms_greedy(cuda, tmp_path):
+    """The Trainer on the card: one update, then evaluate() at the protocol
+    config runs its NMS in B1 (K=4096)."""
+    from PIL import Image
+
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.train import Trainer
+
+    img_dir, lab_dir = tmp_path / "img", tmp_path / "lab"
+    img_dir.mkdir()
+    lab_dir.mkdir()
+    img, ann = _train_batch(4, 64, 3, seed=1)
+    for i in range(4):
+        Image.fromarray(img[i].numpy()).save(img_dir / f"{i}.png")
+        rows = ann[i][ann[i][:, 4] >= 0].numpy()
+        (lab_dir / f"{i}.txt").write_text(
+            "".join(f"{int(r[4])} {r[0]:.1f} {r[1]:.1f} {r[2]:.1f} {r[3]:.1f}\n" for r in rows))
+    hyp = {"input_img_size": [64, 64], "batch_size": 2, "accumulate_loss_step": 4,
+           "total_epoch": 1, "no_data_aug_epoch": 1, "num_workers": 2, "save_ckpt_every": 10}
+    cfg = TrainConfig.from_hyp(hyp, model="yolov5s", max_labels=8,
+                               output_dir=str(tmp_path / "run"))
+    trainer = Trainer(cfg, (img_dir, lab_dir), val_dirs=(img_dir, lab_dir),
+                      log_fn=lambda *a: None, device=cuda)
+    try:
+        trainer.train()
+        assert np.isfinite(trainer.history[0]["tot_loss"])
+        n = nms_greedy.nms_greedy.launches
+        out = trainer.evaluate()
+        assert nms_greedy.nms_greedy.launches == n + 2  # one per val batch of 2
+        assert 0.0 <= out["map"] <= 1.0
+    finally:
+        trainer.close()

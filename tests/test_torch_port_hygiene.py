@@ -4,6 +4,8 @@
   ``flax`` and the JAX package ``yoloseries_tpu`` (the exact module name:
   it is a prefix of ``yoloseries_tpu_torch``) out of ``sys.modules``; no
   source of the port or ``chip_smoke.py`` imports them.
+* Importing the port needs no ``yaml`` and no ``cv2`` (``load_hyp`` imports
+  yaml; nothing uses cv2).
 * Entry points raise when no card is visible unless given ``device="cpu"``.
 * A kernel wrapper given CPU tensors runs its plain twin and counts no
   launch; nothing is built.
@@ -42,6 +44,7 @@ def test_importing_the_port_loads_no_jax():
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'yoloseries_tpu')\n"
             "       or m.startswith(('jax.', 'flax.', 'yoloseries_tpu.'))]\n"
+            "bad += [m for m in ('yaml', 'cv2') if m in sys.modules]\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -79,6 +82,25 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Evaluator(model, yolov5_decode_fn(), EvalConfig())
     assert Evaluator(model, yolov5_decode_fn(), EvalConfig(), device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """``Trainer`` and ``cli/train.py`` resolve the device before they read
+    anything else."""
+    from yoloseries_tpu_torch.cli.train import main
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig.from_hyp({"no_data_aug_epoch": 300},
+                               output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, (tmp_path / "missing", tmp_path / "missing"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--train-img-dir", str(tmp_path / "missing"),
+              "--train-lab-dir", str(tmp_path / "missing")])
+    with pytest.raises(FileNotFoundError):  # on the CPU it goes on to read the data
+        Trainer(cfg, (tmp_path / "missing", tmp_path / "missing"), device="cpu")
 
 
 def test_wrappers_on_cpu_use_the_twins():

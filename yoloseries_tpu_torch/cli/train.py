@@ -1,0 +1,83 @@
+"""Train a detector with the port.
+
+    python -m yoloseries_tpu_torch.cli.train --model yolov5s \
+        --cfg yoloseries_tpu_torch/configs/presets/train_yolov5.yaml \
+        --train-img-dir ... --train-lab-dir ... [--val-img-dir ... --val-lab-dir ...] \
+        --set no_data_aug_epoch=300 [--device cpu]
+
+The arguments of the JAX package's ``cli/train.py``, plus ``--device``
+(default ``cuda``: no card is an error unless ``--device cpu``). Host
+augmentation is not ported yet (ROADMAP A6): the run must close it for
+every epoch (``no_data_aug_epoch >= total_epoch``), or the Trainer raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+__all__ = ["main", "parse_args"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--cfg", default=None, help="YAML config (reference format)")
+    p.add_argument("--model", default="yolov5s")
+    p.add_argument("--train-img-dir", required=True)
+    p.add_argument("--train-lab-dir", required=True)
+    p.add_argument("--val-img-dir", default=None)
+    p.add_argument("--val-lab-dir", default=None)
+    p.add_argument("--name-path", default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--total-epoch", type=int, default=None)
+    p.add_argument("--input-size", type=int, default=None)
+    p.add_argument("--output-dir", default="runs")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported yet)")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override any flattened hyp key (YAML-typed), e.g. "
+                        "--set no_data_aug_epoch=300")
+    p.add_argument("--device", default="cuda", help="'cpu' to run on the CPU")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    import torch
+
+    from ..configs import TrainConfig, load_hyp
+    from ..device import resolve_device
+    from ..train import Trainer
+
+    device = resolve_device(args.device)
+    hyp = load_hyp(args.cfg) if args.cfg else {}
+    if args.batch_size:
+        hyp["batch_size"] = args.batch_size
+    if args.total_epoch:
+        hyp["total_epoch"] = args.total_epoch
+    if args.input_size:
+        hyp["input_img_size"] = [args.input_size, args.input_size]
+    for kv in args.set:
+        import yaml
+
+        key, _, value = kv.partition("=")
+        hyp[key.strip()] = yaml.safe_load(value)
+
+    cfg = TrainConfig.from_hyp(hyp, model=args.model, output_dir=args.output_dir)
+    trainer = Trainer(
+        cfg, (args.train_img_dir, args.train_lab_dir),
+        val_dirs=(args.val_img_dir, args.val_lab_dir) if args.val_img_dir else None,
+        names_path=args.name_path,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        device=device,
+    )
+    if args.resume:
+        trainer.load()
+    eval_fn = (lambda tr: tr.evaluate()) if trainer.val_dataset is not None else None
+    try:
+        trainer.train(eval_fn=eval_fn)
+    finally:
+        trainer.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,9 @@
-"""Model registry of the port: ``create_model`` for yolov5{s,m,l,x}."""
+"""Model registry of the port: ``create_model`` for yolov5{s,m,l,x} and for
+names added with ``register``."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -8,24 +11,38 @@ from ..device import resolve_device
 from .yolov5 import YOLOV5_SIZES, CSPTrunk, YOLOv5, YOLOv5Spec
 
 __all__ = ["CSPTrunk", "YOLOV5_SIZES", "YOLOv5", "YOLOv5Spec",
-           "available_models", "create_model"]
+           "available_models", "create_model", "register"]
 
 _PORTED = ("s", "m", "l", "x")
+_REGISTRY: dict[str, Callable[..., torch.nn.Module]] = {}
+
+
+def register(name: str):
+    """Decorator: ``fn(num_class, generator=..., **kwargs) -> nn.Module``
+    becomes buildable as ``create_model(name, ...)``."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
 
 
 def available_models() -> list[str]:
-    return [f"yolov5{s}" for s in _PORTED]
+    return [f"yolov5{s}" for s in _PORTED] + sorted(_REGISTRY)
 
 
 def create_model(name: str, num_class: int, device=None, seed: int = 0,
-                 **kwargs) -> YOLOv5:
+                 **kwargs) -> torch.nn.Module:
     """Build ``name`` with weights drawn from ``torch.Generator`` seeded with
     ``seed``, in eval mode, on ``device`` (default ``cuda``; raises without
     a card unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    size = name.removeprefix("yolov5")
-    if not name.startswith("yolov5") or size not in YOLOV5_SIZES:
-        raise KeyError(f"unknown model '{name}'; available: {available_models()}")
     gen = torch.Generator().manual_seed(seed)
-    model = YOLOv5(num_class, YOLOV5_SIZES[size], generator=gen, **kwargs)
+    if name in _REGISTRY:
+        model = _REGISTRY[name](num_class=num_class, generator=gen, **kwargs)
+    else:
+        size = name.removeprefix("yolov5")
+        if not name.startswith("yolov5") or size not in YOLOV5_SIZES:
+            raise KeyError(f"unknown model '{name}'; available: {available_models()}")
+        model = YOLOv5(num_class, YOLOV5_SIZES[size], generator=gen, **kwargs)
     return model.to(dev).eval()
