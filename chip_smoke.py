@@ -51,7 +51,23 @@ Phases (any failure exits non-zero and prints no result line):
    from the same weights and batch (tot_loss within 1e-3 relative, every
    parameter within 1e-3 * max(1, |p|)), and a profiler split of one
    training update (convolution forward and backward, BN, the loss and its
-   winner step, the optimizer, the EMA, the H2D copy);
+   winner step, the optimizer, the EMA, the H2D copy). The loaders here run
+   the loader's default, worker processes; the loader alone is also timed
+   with threads (the batches must be byte-identical), and one thread's time
+   per sample in ``get`` and in the collate;
+9. the recipe: the host's core count, then a sha256 of one augmented batch
+   (8 synthetic PNGs at 640 px, the preset's augmentation, the image cache,
+   seed 5; ``tests/test_torch_port_augment.py`` makes the same batch with
+   the JAX package, so the two cv2 builds can be compared by hand); the
+   ``Trainer`` on 128 more synthetic PNGs with the preset's augmentation and
+   the image cache (cached canvases), worker processes, 4 one-update epochs
+   of B=64 x 2, the last 2 closed (the close saves a checkpoint); the
+   augmented loader alone with threads and with processes (ms per batch of
+   128; the batches must be byte-identical); ``cli/val.py`` on the
+   checkpoint the run wrote (B=16, K=4096: B1, held index for index against
+   its twin at its candidates, and timed there); ``cli/detect.py
+   --ckpt-dir`` on 6 images (B=8, K=4096: B1, held against its twin). The launch
+   counters are zeroed before ``val`` and before ``detect`` and read after;
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
@@ -62,9 +78,11 @@ matmul), so every comparison and time is full f32.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -78,6 +96,7 @@ MODEL_TOL = 1e-3  # f32 raw maps, card vs CPU: summation order over ~60 convs
 TRAIN_TOL = 1e-3  # one f32 update, card vs CPU: the same summation orders, then SGD
 CUT_IN_TILE = "max_keep cut inside a tile"  # phase-3 cases of B1
 ALL_DEAD = "an all-dead image"
+WATCHDOG_S = 1100  # the whole script's limit is 1200 s
 
 
 def log(*args):
@@ -87,6 +106,20 @@ def log(*args):
 def fail(msg):
     log(f"FAILED: {msg}")
     sys.exit(1)
+
+
+def hang():
+    """A hang ends the script inside its time limit: every thread's stack,
+    then the worker processes it started (they hold its output open), then
+    exit 1."""
+    import multiprocessing
+    import os
+
+    log(f"FAILED: no end after {WATCHDOG_S} s")
+    faulthandler.dump_traceback(all_threads=True)
+    for child in multiprocessing.active_children():
+        child.kill()
+    os._exit(1)
 
 
 def run(cmd):
@@ -890,24 +923,48 @@ def step_alone_ms(trainer, host_batch, n=3):
     return start.elapsed_time(end) / n
 
 
-def loader_alone_ms(trainer, n=3):
-    """ms per batch of a fresh loader over the train set, built as the
-    Trainer builds it, with nothing else running: the consumer takes each
-    batch at once, so batches arrive as fast as the loader makes them (the
-    median gap between arrivals after the first batch)."""
+def loader_alone_ms(dataset, cfg, n=3, use_processes=None):
+    """ms per batch of a fresh loader over ``dataset``, built as the Trainer
+    builds it (``use_processes`` None: the loader's default), with nothing
+    else running: the consumer takes each batch at once, so batches arrive
+    as fast as the loader makes them (the median gap between arrivals after
+    the first batch). Returns (ms, "processes" or "threads", sha256 of each
+    batch's images and targets)."""
+    import hashlib
+
     from yoloseries_tpu_torch.data.loader import DataLoader
 
-    cfg = trainer.cfg
-    loader = DataLoader(trainer.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
-                        max_labels=cfg.max_labels, seed=cfg.seed + 1, workers=cfg.num_workers)
+    loader = DataLoader(dataset, batch_size=cfg.batch_size * cfg.accumulate,
+                        max_labels=cfg.max_labels, seed=cfg.seed + 1, workers=cfg.num_workers,
+                        use_processes=use_processes)
+    mode = "threads" if loader._proc_pool is None else "processes"
+    if use_processes and mode == "threads":
+        fail("the loader runs no worker processes")
     try:
-        arrivals = []
+        arrivals, digests = [], []
         for _ in range(n + 1):
-            next(loader)
+            batch = next(loader)
             arrivals.append(time.perf_counter())
+            digests.append(hashlib.sha256(batch["img"].tobytes() + batch["ann"].tobytes())
+                           .hexdigest())
     finally:
         loader.stop()
-    return float(np.median(np.diff(arrivals))) * 1e3
+    return float(np.median(np.diff(arrivals))) * 1e3, mode, digests
+
+
+def host_split(dataset, cfg, n=32):
+    """Where a loader's host time goes, one thread, nothing else running:
+    ms per sample of ``dataset.get`` (decode, augmentation) and of the
+    letterbox collate (in the workers with processes, in the producer
+    thread with threads), each over ``n`` samples."""
+    from yoloseries_tpu_torch.data.loader import collate_batch
+
+    t0 = time.perf_counter()
+    samples = [dataset.get(i % len(dataset), np.random.default_rng(i)) for i in range(n)]
+    t1 = time.perf_counter()
+    collate_batch(samples, cfg.input_size, cfg.max_labels)
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
 
 
 def step_syncs(trainer, host_batch):
@@ -1064,7 +1121,7 @@ def phase_training(card):
         val_dirs = synthetic_folder(tmp / "val", 2 * TRAIN_BATCH, seed=1)
         log(f"synthetic folder set: {TRAIN_BATCH * TRAIN_ACCUMULATE} train and "
             f"{2 * TRAIN_BATCH} val PNGs in {time.perf_counter() - t0:.1f} s")
-        cfg = TrainConfig.from_hyp(train_hyp(TRAIN_UPDATES), model="yolov5s",
+        cfg = TrainConfig.from_hyp(train_hyp(TRAIN_UPDATES), num_class=80, model="yolov5s",
                                    output_dir=str(tmp / "run"))
         trainer = Trainer(cfg, train_dirs[:2], val_dirs=val_dirs[:2], names_path=train_dirs[2],
                           log_fn=lambda *a: log("  trainer:", *a), device="cuda")
@@ -1139,14 +1196,22 @@ def phase_training(card):
             # the parts of an update apart, each on a quiet host: the loader
             # alone, then (the Trainer's loader stopped) the copy, the step
             # on a batch already on the card, and its host syncs
-            loader = loader_alone_ms(trainer)
+            loader, mode, digests = loader_alone_ms(trainer.train_dataset, cfg)
+            loader_threads, _, digests_threads = loader_alone_ms(trainer.train_dataset, cfg,
+                                                                 use_processes=False)
+            if digests != digests_threads:
+                fail(f"the loader's {mode} and threads made different batches")
+            get_ms, collate_ms = host_split(trainer.train_dataset, cfg)
+            log(f"  the loader alone with {cfg.num_workers} threads {loader_threads:.1f} ms per "
+                f"batch (the same bytes); one thread, per sample: get (PIL decode) {get_ms:.2f} "
+                f"ms, collate (letterbox into the batch) {collate_ms:.2f} ms [{card}]")
             host_batch = next(trainer.train_loader)
             trainer.train_loader.stop()
             h2d_call, h2d_landed = h2d_ms(trainer, host_batch)
             alone = step_alone_ms(trainer, host_batch)
             syncs = step_syncs(trainer, host_batch)
             log(f"  apart, on a quiet host: the loader alone {loader:.1f} ms per batch of "
-                f"{TRAIN_BATCH * TRAIN_ACCUMULATE} ({cfg.num_workers} threads); the Trainer's "
+                f"{TRAIN_BATCH * TRAIN_ACCUMULATE} ({cfg.num_workers} {mode}); the Trainer's "
                 f"copy of one batch ({host_batch['img'].nbytes / 2**20:.0f} MiB) {h2d_call:.1f} "
                 f"ms to return (pinning, enqueue), {h2d_landed:.1f} ms until landed; the step "
                 f"alone on a batch already on the card {alone:.1f} ms per update "
@@ -1163,18 +1228,281 @@ def phase_training(card):
     return {"ms_per_update": ms, "img_per_s": TRAIN_BATCH * TRAIN_ACCUMULATE / ms * 1e3,
             "peak_gib": peak, "map": result["map"], "map50": result["map50"],
             "host_between_ms": between, "host_inside_ms": inside, "loader_ms": loader,
+            "loader_mode": mode, "loader_threads_ms": loader_threads, "get_ms_per_sample": get_ms,
+            "collate_ms_per_sample": collate_ms,
             "step_alone_ms": alone, "step_syncs": len(syncs), "h2d_call_ms": h2d_call,
             "h2d_landed_ms": h2d_landed,
             "launches": launches, "captured": rec["nms_greedy"][0], "profile": profile,
             "phase_s": wall}
 
 
-def train_val_row(train, card):
-    """B1 at the training val pass's candidates: times beside the plain
-    twin, the bound and the chain, as in phase 6."""
+# ----------------------------------------------------------- the recipe
+
+RECIPE_EPOCHS, RECIPE_CLOSED = 4, 2  # one-update epochs; augmentation closed for the last 2
+DIGEST_SEED = 5
+PRESET_AUG = {  # data_hyp of configs/presets/train_yolov5.yaml
+    "data_aug_prespective_p": 1.0, "data_aug_scale": 0.5, "data_aug_shear": 0.0,
+    "data_aug_translate": 0.1, "data_aug_degree": 0.0, "data_aug_prespective": 0.0005,
+    "data_aug_hsv_p": 1.0, "data_aug_hsv_hgain": 0.015, "data_aug_hsv_sgain": 0.7,
+    "data_aug_hsv_vgain": 0.4, "data_aug_mixup_p": 0.3, "data_aug_fliplr_p": 0.3,
+    "data_aug_flipud_p": 0.0, "data_aug_fill_value": 114, "data_aug_mosaic_p": 1.0,
+    "data_aug_cutout_p": 0.3, "data_aug_cutout_iou_thr": 0.3, "data_aug_scale_jitting_p": 0.0,
+}
+
+
+def recipe_hyp():
+    """Phase 8's keys with the preset's augmentation and the image cache,
+    for 4 one-update epochs, the last 2 closed; a checkpoint every epoch."""
+    return {**train_hyp(RECIPE_EPOCHS), **PRESET_AUG, "no_data_aug_epoch": RECIPE_CLOSED,
+            "cache_images": True, "save_ckpt_every": 1}
+
+
+def aug_digest(dataset_cls, loader_cls, img_dir, lab_dir, cache_dir, **loader_kw):
+    """sha256 of the images and targets of the first batch of 8 that
+    ``loader_cls`` makes over the folder at 640 px, seed 5, with the
+    preset's augmentation (the dataset's default) and the image cache. Both
+    packages give the same bytes under one cv2 (``dataset_cls`` and
+    ``loader_cls`` may be either's)."""
+    import hashlib
+
+    ds = dataset_cls(img_dir, lab_dir, input_size=(640, 640), enable_aug=True,
+                     cache_images=True, cache_dir=cache_dir)
+    loader = loader_cls(ds, batch_size=8, max_labels=300, seed=DIGEST_SEED, **loader_kw)
+    try:
+        batch = next(loader)
+    finally:
+        loader.stop()
+    return hashlib.sha256(batch["img"].tobytes() + batch["ann"].tobytes()).hexdigest()
+
+
+def cv2_op_digests():
+    """sha256 (first 16 hex digits) of each cv2 call of the augmenters and
+    the cache on fixed seeded inputs at 640 px: where two cv2 builds part."""
+    import hashlib
+
+    import cv2
+
+    rng = np.random.default_rng(DIGEST_SEED)
+    yy, xx = np.mgrid[0:480, 0:640]
+    img = np.clip(np.stack([100 + 80 * np.sin(yy / 13.0 + c) * np.cos(xx / 17.0)
+                            for c in range(3)], -1) + rng.integers(-30, 30, (480, 640, 3)),
+                  0, 255).astype(np.uint8)
+    other = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    M = np.array([[0.9, 0.05, 40.0], [-0.03, 1.1, -20.0], [2e-4, -1e-4, 1.0]])
+    hsv = cv2.cvtColor(img, cv2.COLOR_RGB2HSV)
+    lut = np.clip(np.arange(256) * 1.3, 0, 255).astype(np.uint8)
+    ops = {
+        "resize linear (cache)": lambda: cv2.resize(img, (533, 400),
+                                                    interpolation=cv2.INTER_LINEAR),
+        "warpPerspective": lambda: cv2.warpPerspective(img, M, dsize=(640, 640),
+                                                       borderValue=(114, 114, 114)),
+        "warpAffine": lambda: cv2.warpAffine(img, M[:2], dsize=(640, 640),
+                                             borderValue=(114, 114, 114)),
+        "cvtColor RGB2HSV": lambda: hsv,
+        "cvtColor HSV2RGB": lambda: cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB),
+        "LUT": lambda: cv2.LUT(img[..., 0].copy(), lut),
+        "addWeighted": lambda: cv2.addWeighted(img, 0.37, other, 0.63, 0.0),
+        "blur": lambda: cv2.blur(img, (5, 5)),
+        "getRotationMatrix2D": lambda: cv2.getRotationMatrix2D(angle=7.0, center=(0, 0),
+                                                               scale=1.3),
+    }
+    return {k: hashlib.sha256(np.ascontiguousarray(f()).tobytes()).hexdigest()[:16]
+            for k, f in ops.items()}
+
+
+def greedy_mismatches(calls):
+    """B1 against its twin at recorded (boxes, scores, thr) calls:
+    (mismatched slots, keepers, live candidates)."""
     from yoloseries_tpu_torch.kernels import nms_greedy as g
 
-    boxes, scores, thr = train["captured"]
+    bad = kept = live = 0
+    saved = g.nms_greedy.launches
+    for boxes, scores, thr in calls:
+        want = g.greedy_nms(boxes, scores, thr, MAX_KEEP)
+        got = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
+        torch.cuda.synchronize()
+        bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        kept += int(want[1].sum())
+        live += int((scores > 0).sum())
+    g.nms_greedy.launches = saved
+    return bad, kept, live
+
+
+def phase_recipe(card):
+    """The preset's recipe on the port: augmented, cached training through
+    the close, the augmented loader alone, then ``cli/val.py`` and
+    ``cli/detect.py`` on the checkpoint the run wrote."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    from yoloseries_tpu_torch.cli.detect import main as detect_main
+    from yoloseries_tpu_torch.cli.val import main as val_main
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+    from yoloseries_tpu_torch.train import Trainer, latest_step
+
+    t_phase = time.perf_counter()
+    cores, usable = os.cpu_count(), len(os.sched_getaffinity(0))
+    log(f"host: os.cpu_count() {cores}, usable cores {usable}; cv2 {cv2.__version__}, "
+        f"cv2 threads {cv2.getNumThreads()}")
+    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
+                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
+    batch = TRAIN_BATCH * TRAIN_ACCUMULATE
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        train_dirs = synthetic_folder(tmp / "train", batch, seed=2)
+        val_dirs = synthetic_folder(tmp / "val", TRAIN_BATCH, seed=3)
+        digest_dirs = synthetic_folder(tmp / "digest", 8, seed=DIGEST_SEED)
+        log(f"synthetic folder set: {batch} train, {TRAIN_BATCH} val and 8 digest PNGs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        digest = aug_digest(DetectionDataset, DataLoader, *digest_dirs[:2], tmp / "digest_cache")
+        log(f"augmented batch sha256 (8 x 640 px, preset augmentation, image cache, seed "
+            f"{DIGEST_SEED}, cv2 {cv2.__version__}): {digest}")
+        op_digests = cv2_op_digests()
+        log("  cv2 calls, sha256[:16]: " + ", ".join(f"{k} {v}" for k, v in op_digests.items()))
+
+        cfg = TrainConfig.from_hyp(recipe_hyp(), num_class=80, model="yolov5s",
+                                   output_dir=str(tmp / "run"))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, train_dirs[:2], names_path=train_dirs[2],
+                          log_fn=lambda *a: log("  trainer:", *a), device="cuda")
+        init_s = time.perf_counter() - t0
+        ckpt_dir = trainer.ckpt_dir
+        try:
+            if trainer.train_loader._proc_pool is None:
+                fail("the Trainer's loader runs no worker processes")
+            if trainer.train_dataset._cache is None or not trainer.train_dataset.cached_canvas:
+                fail("the train set serves no cached canvases")
+            # as in phase 8: BN stats from a val batch, then the head widened,
+            # so that val hands B1 live candidates; the EMA restarts here
+            val_ds = DetectionDataset(*val_dirs[:2], input_size=cfg.input_size)
+            calib = collate_batch([val_ds.get(i, np.random.default_rng(i)) for i in range(8)],
+                                  cfg.input_size, cfg.max_labels)["img"]
+            calib = torch.from_numpy(calib).cuda().permute(0, 3, 1, 2).float() / 255
+            model = trainer.state.model
+            settle_bn(model, calib)
+            widen_head(model.eval(), calib)
+            trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            ends, host = timed_updates(trainer)
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            trainer.close()
+        bad = [h for h in trainer.history if not all(np.isfinite(v) for v in h.values())]
+        if len(trainer.history) != RECIPE_EPOCHS or bad:
+            fail(f"recipe: {len(trainer.history)} updates, non-finite losses {bad}")
+        steps = sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+        closed_at = (RECIPE_EPOCHS - RECIPE_CLOSED) * trainer.steps_per_epoch
+        if latest_step(ckpt_dir) != RECIPE_EPOCHS or closed_at not in steps:
+            fail(f"recipe: checkpoints at steps {steps}, want the close's {closed_at} and "
+                 f"the last {RECIPE_EPOCHS}")
+        per_update = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        between = [(b[0] - a[1]) * 1e3 for a, b in zip(host, host[1:])]
+        for i, h in enumerate(trainer.history):
+            log(f"  update {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(h.items())))
+        log(f"recipe: yolov5s 640 f32, B={TRAIN_BATCH} x {TRAIN_ACCUMULATE}, preset augmentation "
+            f"and the image cache, {RECIPE_EPOCHS} one-update epochs (the last {RECIPE_CLOSED} "
+            f"closed): Trainer built in {init_s:.1f} s (cold cache), {train_s:.1f} s for the "
+            f"updates; ms between update ends {', '.join(f'{x:.1f}' for x in per_update)}; host "
+            f"ms between steps {', '.join(f'{x:.1f}' for x in between)}; checkpoints at steps "
+            f"{steps} [{card}]")
+
+        # the augmented loader alone, threads then processes, batch for batch
+        loader = {}
+        for mode in (False, True):
+            ms, name, digests = loader_alone_ms(trainer.train_dataset, cfg, use_processes=mode)
+            loader[name] = (ms, digests)
+        if loader["threads"][1] != loader["processes"][1]:
+            fail("the augmented loader's processes and threads made different batches")
+        get_ms, collate_ms = host_split(trainer.train_dataset, cfg)
+        log(f"  the augmented loader alone (cached canvases, preset augmentation): "
+            f"{loader['threads'][0]:.1f} ms per batch of {batch} with {cfg.num_workers} threads, "
+            f"{loader['processes'][0]:.1f} ms with {cfg.num_workers} processes; "
+            f"{len(loader['threads'][1])} batches byte-identical; one thread, per sample: get "
+            f"(mosaic, mixup, warp, HSV, ...) {get_ms:.2f} ms, collate {collate_ms:.2f} ms "
+            f"[{card}]")
+
+        # val on the checkpoint the run wrote: B1 at B=16, K=4096
+        for c in counters.values():
+            c.launches = 0
+        with record_nms_inputs() as rec:
+            t0 = time.perf_counter()
+            result = val_main(["--ckpt-dir", str(ckpt_dir), "--val-img-dir", str(val_dirs[0]),
+                               "--val-lab-dir", str(val_dirs[1]), "--name-path",
+                               str(val_dirs[2]), "--device", "cuda"])
+            val_s = time.perf_counter() - t0
+        val_launches = {k: c.launches for k, c in counters.items()}
+        val_calls = rec["nms_greedy"]
+        mismatches, kept, live = greedy_mismatches(val_calls)
+        log(f"cli/val.py on the step-{RECIPE_EPOCHS} checkpoint (EMA), {TRAIN_BATCH} images at "
+            f"B=16: mAP {result['map']:.6f} mAP50 {result['map50']:.6f} in {val_s:.1f} s; "
+            f"launches {val_launches}; nms_greedy at its {len(val_calls)} candidate sets "
+            f"{tuple(val_calls[0][1].shape) if val_calls else ()}: {live} live "
+            f"candidates, {kept} kept, {mismatches} mismatches [{card}]")
+        if val_launches["nms_greedy"] == 0:
+            fail("cli/val.py did not launch nms_greedy")
+        if mismatches:
+            fail("nms_greedy disagrees with its twin in cli/val.py")
+        if kept == 0:
+            fail("cli/val.py handed nms_greedy no live candidate")
+
+        # detect on a few images of the val set, from the same checkpoint
+        few = tmp / "few"
+        few.mkdir()
+        for p in sorted(val_dirs[0].iterdir())[:6]:
+            (few / p.name).symlink_to(p)
+        for c in counters.values():
+            c.launches = 0
+        with record_nms_inputs() as rec:
+            t0 = time.perf_counter()
+            found = detect_main(["--ckpt-dir", str(ckpt_dir), "--img-dir", str(few),
+                                 "--name-path", str(val_dirs[2]), "--save-dir",
+                                 str(tmp / "detect"), "--device", "cuda"])
+            detect_s = time.perf_counter() - t0
+        detect_launches = {k: c.launches for k, c in counters.items()}
+        bad = greedy_mismatches(rec["nms_greedy"])[0]
+        saved = m.matrix_nms.launches
+        for boxes, scores, thr in rec["matrix_nms"]:
+            want = m.matrix_nms_plain(boxes, scores, thr, MAX_KEEP)
+            got = m.matrix_nms(boxes, scores, thr, MAX_KEEP)
+            torch.cuda.synchronize()
+            bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        m.matrix_nms.launches = saved
+        n_boxes = sum(len(v) for v in found.values())
+        log(f"cli/detect.py --ckpt-dir on {len(found)} images (B=8, K=4096, conf .3): {n_boxes} "
+            f"boxes in {detect_s:.1f} s; launches {detect_launches}; against the twins at its "
+            f"candidates: {bad} mismatches [{card}]")
+        if len(found) != 6 or sum(detect_launches.values()) == 0 or bad:
+            fail("cli/detect.py --ckpt-dir: images missing, no kernel launched or a mismatch")
+    wall = time.perf_counter() - t_phase
+    log(f"recipe phase: {wall:.1f} s [{card}]")
+    return {"loss_first": trainer.history[0]["tot_loss"],
+            "loss_last": trainer.history[-1]["tot_loss"], "ms_between_update_ends": per_update,
+            "host_between_ms": between, "loader_threads_ms": loader["threads"][0],
+            "loader_processes_ms": loader["processes"][0], "get_ms_per_sample": get_ms,
+            "collate_ms_per_sample": collate_ms, "aug_digest": digest,
+            "cv2_op_digests": op_digests,
+            "cores": cores, "usable_cores": usable, "cv2": cv2.__version__,
+            "val_map": result["map"], "val_map50": result["map50"], "val_s": val_s,
+            "val_launches": val_launches, "detect_launches": detect_launches,
+            "val_captured": val_calls[0], "phase_s": wall}
+
+
+def b1_row(captured, launches, where, card):
+    """B1 at one later path's candidates (``captured``: boxes, scores,
+    thr of one call): times beside the plain twin, the bound and the chain,
+    as in phase 6; ``launches`` its launches on that path."""
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+
+    boxes, scores, thr = captured
     saved = g.nms_greedy.launches
     ki, kv = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
     ms = cuda_ms(lambda: g.nms_greedy(boxes, scores, thr, MAX_KEEP), iters=20)
@@ -1184,12 +1512,11 @@ def train_val_row(train, card):
     bound, by = bound_ms(boxes, greedy_ious(scores, ki, kv))
     chain = int(kv.sum(dim=1).max()) * step_us("warp") * 1e-3
     b, k = scores.shape
-    log(f"  nms_greedy [train val B={b}] K={k}: kernel {ms:.4f} ms (CUDA events), device time "
+    log(f"  nms_greedy [{where} B={b}] K={k}: kernel {ms:.4f} ms (CUDA events), device time "
         f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (profiler), plain "
         f"twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), chain {chain:.6f} ms, "
-        f"launches in evaluate() {train['launches']['nms_greedy']} [{card}]")
-    return {"shape": f"train val B={b} K={k} thr={thr}",
-            "launches": train["launches"]["nms_greedy"],
+        f"launches on the path {launches} [{card}]")
+    return {"shape": f"{where} B={b} K={k} thr={thr}", "launches": launches,
             "ms": ms, "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "chain_ms": chain}
 
@@ -1204,6 +1531,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False  # full f32 everywhere below
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+    watchdog = threading.Timer(WATCHDOG_S, hang)
+    watchdog.daemon = True
+    watchdog.start()
     t_start = time.perf_counter()
 
     log("== 1. environment")
@@ -1224,12 +1554,22 @@ def main():
     log("== 8. training")
     train = phase_training(card)
     b1 = next(r for r in rows if r["name"] == "nms_greedy")
-    b1["train_val"] = train_val_row(train, card)
+    b1["train_val"] = b1_row(train["captured"], train["launches"]["nms_greedy"], "train val",
+                             card)
     b1["launches"] += train["launches"]["nms_greedy"]
     b1["training"] = {k: train[k] for k in (
         "ms_per_update", "img_per_s", "peak_gib", "map", "map50", "host_between_ms",
-        "host_inside_ms", "loader_ms", "step_alone_ms", "step_syncs", "h2d_call_ms",
+        "host_inside_ms", "loader_ms", "loader_mode", "loader_threads_ms", "get_ms_per_sample",
+        "collate_ms_per_sample", "step_alone_ms", "step_syncs", "h2d_call_ms",
         "h2d_landed_ms", "profile", "phase_s")}
+    log("== 9. the recipe")
+    recipe = phase_recipe(card)
+    b1["recipe_val"] = b1_row(recipe.pop("val_captured"), recipe["val_launches"]["nms_greedy"],
+                              "recipe val", card)
+    b1["launches"] += recipe["val_launches"]["nms_greedy"]
+    b1["recipe"] = recipe
+    for row in rows:  # detect's launches, whichever kernel its shape reached
+        row["launches"] += recipe["detect_launches"][row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

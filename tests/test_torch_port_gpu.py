@@ -221,7 +221,7 @@ def test_trainer_evaluate_launches_nms_greedy(cuda, tmp_path):
             "".join(f"{int(r[4])} {r[0]:.1f} {r[1]:.1f} {r[2]:.1f} {r[3]:.1f}\n" for r in rows))
     hyp = {"input_img_size": [64, 64], "batch_size": 2, "accumulate_loss_step": 4,
            "total_epoch": 1, "no_data_aug_epoch": 1, "num_workers": 2, "save_ckpt_every": 10}
-    cfg = TrainConfig.from_hyp(hyp, model="yolov5s", max_labels=8,
+    cfg = TrainConfig.from_hyp(hyp, num_class=3, model="yolov5s", max_labels=8,
                                output_dir=str(tmp_path / "run"))
     trainer = Trainer(cfg, (img_dir, lab_dir), val_dirs=(img_dir, lab_dir),
                       log_fn=lambda *a: None, device=cuda)

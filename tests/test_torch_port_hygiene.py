@@ -5,7 +5,7 @@
   it is a prefix of ``yoloseries_tpu_torch``) out of ``sys.modules``; no
   source of the port or ``chip_smoke.py`` imports them.
 * Importing the port needs no ``yaml`` and no ``cv2`` (``load_hyp`` imports
-  yaml; nothing uses cv2).
+  yaml; the augmenters and the image cache import cv2 where they call it).
 * Entry points raise when no card is visible unless given ``device="cpu"``.
 * A kernel wrapper given CPU tensors runs its plain twin and counts no
   launch; nothing is built.
@@ -85,22 +85,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
-    """``Trainer`` and ``cli/train.py`` resolve the device before they read
-    anything else."""
+    """``Trainer``, ``cli/train.py``, ``cli/val.py`` and ``cli/detect.py``
+    resolve the device before they read anything else."""
+    from yoloseries_tpu_torch.cli.detect import main as detect_main
     from yoloseries_tpu_torch.cli.train import main
+    from yoloseries_tpu_torch.cli.val import main as val_main
     from yoloseries_tpu_torch.configs import TrainConfig
     from yoloseries_tpu_torch.train import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = TrainConfig.from_hyp({"no_data_aug_epoch": 300},
-                               output_dir=str(tmp_path))
+    cfg = TrainConfig.from_hyp({}, num_class=3, output_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, (tmp_path / "missing", tmp_path / "missing"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--train-img-dir", str(tmp_path / "missing"),
               "--train-lab-dir", str(tmp_path / "missing")])
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        val_main(["--ckpt-dir", missing, "--val-img-dir", missing, "--val-lab-dir", missing])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_main(["--ckpt-dir", missing, "--img-dir", missing, "--num-class", "3"])
     with pytest.raises(FileNotFoundError):  # on the CPU it goes on to read the data
         Trainer(cfg, (tmp_path / "missing", tmp_path / "missing"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        val_main(["--ckpt-dir", missing, "--val-img-dir", missing, "--val-lab-dir", missing,
+                  "--device", "cpu"])
 
 
 def test_wrappers_on_cpu_use_the_twins():

@@ -10,7 +10,8 @@ data, ops.metrics) against the JAX package.
   starting weights (detect heads widened so that ``evaluate()`` sees real
   candidates). Per-update ``tot_loss`` within rtol 1e-3, the ``evaluate()``
   metrics equal to 1e-6; the port's NMS took the B1 branch
-  (``nms_greedy``, K=4096);
+  (``nms_greedy``, K=4096); then the same with the preset's augmentation
+  and the image cache, closed for the last epoch;
 * the Trainer raises, naming the ROADMAP item, for each setting that needs
   a module not ported yet.
 """
@@ -145,7 +146,7 @@ def test_collate_is_byte_identical():
 def test_loader_batches_are_byte_identical(folder):
     img_dir, lab_dir, names = folder
     ours = DataLoader(DetectionDataset(img_dir, lab_dir, names, input_size=(SIZE, SIZE)),
-                      batch_size=3, max_labels=6, seed=11, workers=2)
+                      batch_size=3, max_labels=6, seed=11, workers=2, use_processes=False)
     theirs = JaxLoader(JaxDataset(img_dir, lab_dir, names, input_size=(SIZE, SIZE),
                                   enable_aug=False),
                        batch_size=3, max_labels=6, seed=11, workers=2, use_processes=False)
@@ -167,7 +168,8 @@ def test_loader_batches_are_byte_identical(folder):
         ours.stop()
         theirs.stop()
     val = DataLoader(DetectionDataset(img_dir, lab_dir, names, input_size=(SIZE, SIZE)),
-                     batch_size=3, max_labels=6, shuffle=False, infinite=False)
+                     batch_size=3, max_labels=6, shuffle=False, infinite=False,
+                     use_processes=False)
     first = [b["img"].tobytes() for b in val]
     val.restart()
     assert [b["img"].tobytes() for b in val] == first and len(first) == len(val) == 2
@@ -223,7 +225,8 @@ def _label_from_detections(trainer, img_dir, names, lab_dir, per_image=3):
     lab_dir.mkdir()
     trainer._eval_model.load_state_dict(trainer.eval_variables())
     ds = DetectionDataset(img_dir, img_dir.parent / "lab", names, input_size=(SIZE, SIZE))
-    loader = DataLoader(ds, batch_size=len(ds), max_labels=8, shuffle=False, infinite=False)
+    loader = DataLoader(ds, batch_size=len(ds), max_labels=8, shuffle=False, infinite=False,
+                        use_processes=False)
     batch = next(loader)
     loader.stop()
     dets = trainer.evaluator(batch["img"])
@@ -254,7 +257,7 @@ def test_trainer_matches_jax(folder, start_weights, tmp_path, monkeypatch):
 
     jcfg = JaxTrainConfig.from_hyp(_hyp(), num_class=NC, model=MODEL, max_labels=8,
                                    output_dir=str(tmp_path / "jax"))
-    pcfg = TrainConfig.from_hyp(_hyp(), model=MODEL, max_labels=8,
+    pcfg = TrainConfig.from_hyp(_hyp(), num_class=NC, model=MODEL, max_labels=8,
                                 output_dir=str(tmp_path / "port"))
     jtr = JaxTrainer(jcfg, (img_dir, lab_dir), val_dirs=(img_dir, lab_dir), names_path=names,
                      log_fn=lambda *a: None)
@@ -289,9 +292,51 @@ def test_trainer_matches_jax(folder, start_weights, tmp_path, monkeypatch):
     assert calls and all(k == 4096 for _, k in calls)  # B1: 1024 < K <= 8192
 
 
+def test_trainer_with_augmentation_and_cache_matches_jax(folder, start_weights, tmp_path):
+    """The preset's augmentation probabilities and the image cache, closed
+    for the last of 2 epochs: the same 4 losses in both packages. The
+    loader has made its prefetched batches before the close, so all 4 are
+    augmented in both; the close saves a checkpoint at step 2."""
+    import shutil
+
+    from yoloseries_tpu.train import Trainer as JaxTrainer
+    from yoloseries_tpu_torch.train import Trainer, latest_step
+
+    img_dir, lab_dir, names = folder
+    port_data = tmp_path / "port_data"  # its own cache file, built cold
+    shutil.copytree(img_dir, port_data / "img")
+    params, stats = start_weights
+    _register(params, stats)
+    hyp = {k: v for k, v in _hyp().items() if not k.startswith("data_aug_")}
+    hyp.update(no_data_aug_epoch=1, cache_images=True)
+    jcfg = JaxTrainConfig.from_hyp(hyp, num_class=NC, model=MODEL, max_labels=8,
+                                   output_dir=str(tmp_path / "jax"))
+    pcfg = TrainConfig.from_hyp(hyp, NC, model=MODEL, max_labels=8,
+                                output_dir=str(tmp_path / "port"))
+    assert pcfg.aug == type(pcfg.aug)(**jcfg.aug.__dict__) and pcfg.aug.mosaic_p == 1.0
+    jtr = JaxTrainer(jcfg, (img_dir, lab_dir), names_path=names, log_fn=lambda *a: None)
+    ptr = Trainer(pcfg, (port_data / "img", lab_dir), names_path=names,
+                  log_fn=lambda *a: None, device="cpu")
+    try:
+        assert ptr.train_dataset.enable_aug and ptr.train_dataset.cached_canvas
+        assert (port_data / "img_img_cache_h64_w64_8.shapes.npy").exists()
+        put = jax.device_put
+        jtr.state = jtr.state.replace(params=put(params), ema_params=put(params),
+                                      batch_stats=put(stats), ema_batch_stats=put(stats))
+        jtr.train()
+        want_losses = list(jtr.meters["tot_loss"]._window)
+        ptr.train()
+        got_losses = [h["tot_loss"] for h in ptr.history]
+    finally:
+        jtr.close()
+        ptr.close()
+    assert len(want_losses) == len(got_losses) == 4
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-3)
+    assert not ptr.train_loader._enable_aug and not jtr.train_loader._enable_aug
+    assert latest_step(tmp_path / "port" / "checkpoints") == 2
+
+
 @pytest.mark.parametrize("hyp, dtype, item", [
-    ({"no_data_aug_epoch": 1}, torch.float32, "A6"),
-    ({"cache_images": True}, torch.float32, "A6"),
     ({"device_aug": True}, torch.float32, "A7"),
     ({"per_replica_bn": True}, torch.float32, "A8"),
     ({"remat": True}, torch.float32, "A1"),
@@ -304,6 +349,6 @@ def test_trainer_raises_for_what_is_not_ported(folder, tmp_path, hyp, dtype, ite
     from yoloseries_tpu_torch.train import Trainer
 
     img_dir, lab_dir, names = folder
-    cfg = TrainConfig.from_hyp({**_hyp(), **hyp}, output_dir=str(tmp_path))
+    cfg = TrainConfig.from_hyp({**_hyp(), **hyp}, num_class=NC, output_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
         Trainer(cfg, (img_dir, lab_dir), names_path=names, compute_dtype=dtype, device="cpu")

@@ -1,13 +1,18 @@
 """Folder inference with the port.
 
-    python -m yoloseries_tpu_torch.cli.detect --weights yolov5s.pt \
-        --img-dir photos/ --num-class 80 [--conf 0.3] [--iou 0.2] [--device cpu]
+    python -m yoloseries_tpu_torch.cli.detect --ckpt-dir runs/checkpoints \
+        --img-dir photos/ --name-path names.txt [--conf 0.3] [--iou 0.2] [--device cpu]
 
-Weights are a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the
-JAX package's trees in an ``.npz`` whose keys are ``params/...`` and
-``batch_stats/...`` paths joined by ``/``. Images are letterboxed on the
-host, run through ``Evaluator`` (fused decode + class-aware NMS on the
-card), and the detections, in original-image pixels, are written as JSON.
+Weights come from exactly one of ``--ckpt-dir`` (the EMA weights of the
+newest checkpoint that the port's ``cli/train.py`` wrote) and ``--weights``:
+a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the JAX
+package's trees in an ``.npz`` whose keys are ``params/...`` and
+``batch_stats/...`` paths joined by ``/``. The class count comes from
+``--name-path``, else ``--num-class``. Images are letterboxed on the host,
+run through ``Evaluator`` (fused decode + class-aware NMS on the card), and
+the detections, in original-image pixels, are written as JSON. Not ported
+yet: the conv+BN fold before inference (ROADMAP A1; it leaves detections
+unchanged) and drawing the boxes on the images (A10).
 """
 
 from __future__ import annotations
@@ -52,10 +57,14 @@ def detect_batch(evaluator: Evaluator, batch_u8, infos=None) -> list:
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="yolov5s")
-    p.add_argument("--weights", required=True)
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--ckpt-dir", default=None, help="the EMA weights of the newest step")
+    source.add_argument("--weights", default=None, help="a .pt state_dict or an .npz of JAX trees")
     p.add_argument("--img-dir", required=True)
     p.add_argument("--save-dir", default="detect_out")
-    p.add_argument("--num-class", type=int, required=True)
+    p.add_argument("--name-path", default=None)
+    p.add_argument("--num-class", type=int, default=None,
+                   help="required when --name-path is absent")
     p.add_argument("--input-size", type=int, default=640)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--conf", type=float, default=0.3)
@@ -68,14 +77,29 @@ def main(argv=None):
     args = parse_args(argv)
     from PIL import Image  # only the CLI reads image files
 
+    from ..data.dataset import load_names
+    from ..device import resolve_device
     from ..ops.letterbox import letterbox_image
+    from ..train.checkpoint import restore_weights
 
-    model = create_model(args.model, num_class=args.num_class, device="cpu")
-    load_weights(model, args.weights)
+    device = resolve_device(args.device)
+    if args.name_path:
+        num_class = max(load_names(args.name_path)) + 1
+    elif args.num_class:
+        num_class = args.num_class
+    else:
+        raise SystemExit("pass --name-path or --num-class")
+    model = create_model(args.model, num_class=num_class, device="cpu")
+    if args.ckpt_dir:
+        step = restore_weights(model, args.ckpt_dir, device=device)
+        if step is None:
+            raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+        print(f"loaded checkpoint at step {step}")
+    else:
+        load_weights(model, args.weights)
     cfg = EvalConfig(conf_threshold=args.conf, cls_threshold=args.conf,
                      iou_threshold=args.iou, merge_boxes=True)
-    evaluator = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg),
-                          device=args.device)
+    evaluator = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=device)
 
     paths = sorted(p for p in Path(args.img_dir).iterdir()
                    if p.suffix.lower() in IMG_EXTENSIONS)
@@ -101,6 +125,7 @@ def main(argv=None):
     out = save_dir / "detections.json"
     out.write_text(json.dumps(results))
     print(f"saved to {out}")
+    return results
 
 
 if __name__ == "__main__":

@@ -3,12 +3,13 @@
     python -m yoloseries_tpu_torch.cli.train --model yolov5s \
         --cfg yoloseries_tpu_torch/configs/presets/train_yolov5.yaml \
         --train-img-dir ... --train-lab-dir ... [--val-img-dir ... --val-lab-dir ...] \
-        --set no_data_aug_epoch=300 [--device cpu]
+        [--device cpu]
 
 The arguments of the JAX package's ``cli/train.py``, plus ``--device``
-(default ``cuda``: no card is an error unless ``--device cpu``). Host
-augmentation is not ported yet (ROADMAP A6): the run must close it for
-every epoch (``no_data_aug_epoch >= total_epoch``), or the Trainer raises.
+(default ``cuda``: no card is an error unless ``--device cpu``). The class
+count comes from ``--name-path``, else from the train set's labels.
+Checkpoints go to ``<output-dir>/checkpoints/<step>/state.pt``; ``cli/val.py``
+and ``cli/detect.py --ckpt-dir`` read them.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported yet)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any flattened hyp key (YAML-typed), e.g. "
-                        "--set no_data_aug_epoch=300")
+                        "--set data_aug_mixup_p=0.5")
     p.add_argument("--device", default="cuda", help="'cpu' to run on the CPU")
     return p.parse_args(argv)
 
@@ -45,6 +46,7 @@ def main(argv=None):
     import torch
 
     from ..configs import TrainConfig, load_hyp
+    from ..data.dataset import DetectionDataset, load_names
     from ..device import resolve_device
     from ..train import Trainer
 
@@ -62,7 +64,12 @@ def main(argv=None):
         key, _, value = kv.partition("=")
         hyp[key.strip()] = yaml.safe_load(value)
 
-    cfg = TrainConfig.from_hyp(hyp, model=args.model, output_dir=args.output_dir)
+    if args.name_path:
+        num_class = max(load_names(args.name_path)) + 1
+    else:
+        num_class = DetectionDataset(args.train_img_dir, args.train_lab_dir).num_class
+    cfg = TrainConfig.from_hyp(hyp, num_class=num_class, model=args.model,
+                               output_dir=args.output_dir)
     trainer = Trainer(
         cfg, (args.train_img_dir, args.train_lab_dir),
         val_dirs=(args.val_img_dir, args.val_lab_dir) if args.val_img_dir else None,

@@ -16,6 +16,7 @@ from typing import Any
 
 from ..data.augment import AugmentConfig
 from ..evaluation.yolov5 import EvalConfig
+from ..losses.yolov5 import YOLOv5LossConfig
 from ..train.optim import OptimizerConfig
 
 __all__ = ["load_hyp", "TrainConfig"]
@@ -59,10 +60,11 @@ class TrainConfig:
     do_ema: bool = True
     # knobs of the JAX package that the port does not have yet; the Trainer
     # raises when one is set (remat: ROADMAP A1; device_aug, device_cache:
-    # A7; cache_images: A6)
+    # A7)
     remat: bool = False
     device_aug: bool = False
     device_cache: bool = False
+    # memmap cache of min-scale-resized train images, served as full canvases
     cache_images: bool = False
     no_aug_epochs: int = 10
     val_every: int = 1
@@ -70,11 +72,12 @@ class TrainConfig:
     output_dir: str = "runs"
 
     aug: AugmentConfig = None
+    loss: YOLOv5LossConfig = None
     optim: OptimizerConfig = None
     eval: EvalConfig = None
 
     @classmethod
-    def from_hyp(cls, hyp: dict, steps_per_epoch: int = 1000,
+    def from_hyp(cls, hyp: dict, num_class: int, steps_per_epoch: int = 1000,
                  **overrides) -> "TrainConfig":
         input_size = _pad_to_stride(hyp.get("input_img_size", [640, 640]))
         batch_size = overrides.pop("batch_size", hyp.get("batch_size", 64))
@@ -105,6 +108,20 @@ class TrainConfig:
             scale_jitting_p=hyp.get("data_aug_scale_jitting_p", 0.0),
             blur_p=hyp.get("data_aug_blur_p", 0.0),
             input_size=input_size,
+        )
+        loss = YOLOv5LossConfig(
+            num_class=num_class,
+            input_size=input_size,
+            anchor_match_thr=hyp.get("anchor_match_thr", 4.0),
+            iou_loss_scale=hyp.get("iou_loss_scale", 0.05),
+            cls_loss_scale=hyp.get("cls_loss_scale", 0.5),
+            cof_loss_scale=hyp.get("cof_loss_scale", 1.0),
+            cls_pos_weight=hyp.get("cls_pos_weight", 1.0),
+            cof_pos_weight=hyp.get("cof_pos_weight", 1.0),
+            class_smooth_factor=hyp.get("class_smooth_factor", 1.0),
+            use_focal_loss=hyp.get("use_focal_loss", True),
+            focal_loss_gamma=hyp.get("focal_loss_gamma", 1.5),
+            focal_loss_alpha=hyp.get("focal_loss_alpha", 0.25),
         )
         optim = OptimizerConfig(
             optimizer=hyp.get("optimizer", "sgd"),
@@ -158,6 +175,7 @@ class TrainConfig:
             val_every=hyp.get("validation_every", 1),
             save_every=hyp.get("save_ckpt_every", 1),
             aug=aug,
+            loss=loss,
             optim=optim,
             eval=eval_cfg,
         )

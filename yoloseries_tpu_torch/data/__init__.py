@@ -1,6 +1,8 @@
-from .augment import AugmentConfig, valid_boxes_mask
+from .augment import AugmentConfig, apply_transform_chain, mixup, mosaic4, valid_boxes_mask
+from .builders import build_coco_dataset, build_voc_dataset
 from .dataset import DetectionDataset, load_names
 from .loader import DataLoader, collate_batch, infinite_indices
 
-__all__ = ["AugmentConfig", "DataLoader", "DetectionDataset", "collate_batch",
-           "infinite_indices", "load_names", "valid_boxes_mask"]
+__all__ = ["AugmentConfig", "DataLoader", "DetectionDataset", "apply_transform_chain",
+           "build_coco_dataset", "build_voc_dataset", "collate_batch", "infinite_indices",
+           "load_names", "mixup", "mosaic4", "valid_boxes_mask"]

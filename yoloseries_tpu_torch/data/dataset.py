@@ -1,5 +1,5 @@
 """Folder-of-images + txt-label dataset (host side); counterpart of
-``yoloseries_tpu/data/dataset.py`` without augmentation.
+``yoloseries_tpu/data/dataset.py``.
 
 Layout:
 
@@ -8,12 +8,20 @@ Layout:
     names.txt            lines: "class_id name"
 
 Labels are parsed fully; boxes with a side under 1 px are dropped. Images
-are decoded with PIL, imported where an image is read. ``get(...,
-enable_aug=False)`` serves the raw item with the validity filter and the
-resample-until-nonempty loop of the JAX package, its rng draws included.
-Host augmentation and the image cache are not ported yet (ROADMAP A6):
-``get(..., enable_aug=True)`` and ``cache_images=True`` raise. When the
-cache arrives it must serve full canvases by default (``cached_canvas``).
+are decoded with PIL, imported where an image is read. ``get`` draws from
+the caller's rng in the JAX package's order: with augmentation, mosaic
+(with nested mixup) by probability, then the perspective / cutout / HSV /
+blur / flip / jitter chain; then the validity filter and the
+resample-until-nonempty loop.
+
+``cache_images``: a uint8 memmap of every image resized by min(h/H, w/W)
+into the input size, with a ``.shapes.npy`` sidecar of the cached and
+original sizes, so that a warm start decodes no image. Cached items are
+served as the full (h, w) canvas, content top-left and zeros beyond
+(``cached_canvas``, on by default with the cache): that is what the
+reference's cached loader trains on, and the JAX package matched the
+reference's converged mAP only once it served canvases. The device-aug
+planner's ``pull_meta`` is not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .augment import AugmentConfig, valid_boxes_mask
+from .augment import AugmentConfig, apply_transform_chain, mixup, mosaic4, valid_boxes_mask
 
 __all__ = ["DetectionDataset", "load_names"]
 
@@ -46,11 +54,8 @@ class DetectionDataset:
 
     def __init__(self, img_dir, lab_dir, names_path=None, input_size=(640, 640),
                  aug: AugmentConfig | None = None, enable_aug: bool = False,
-                 cache_images: bool = False):
-        if cache_images:
-            raise NotImplementedError(
-                "the image cache (cv2 resize, full canvases) is not ported yet "
-                "(ROADMAP A6)")
+                 cache_images: bool = False, cache_dir=None,
+                 cached_canvas: bool | None = None):
         self.img_dir = Path(img_dir)
         self.lab_dir = Path(lab_dir)
         self.input_size = tuple(input_size)
@@ -71,6 +76,13 @@ class DetectionDataset:
         self.cls2name = load_names(names_path) if names_path is not None else {}
         self._num_class = None
         self._ann_cache: dict = {}
+
+        self._cache = None  # (N, h, w, 3) uint8 memmap
+        self._cache_shapes = None  # (N, 2) cached (rh, rw)
+        self._orig_shapes = None  # (N, 2) original (H, W)
+        self.cached_canvas = bool(cache_images) if cached_canvas is None else bool(cached_canvas)
+        if cache_images:
+            self._build_cache(cache_dir)
 
     def __len__(self):
         return len(self.img_files)
@@ -112,10 +124,69 @@ class DetectionDataset:
         self._ann_cache[idx] = ann
         return ann.copy()
 
+    def _build_cache(self, cache_dir):
+        """Open (warm: the sidecar exists) or build (cold: decode and resize
+        every image, 8 threads) the memmap cache, by default beside
+        ``img_dir``."""
+        import cv2
+        from concurrent.futures import ThreadPoolExecutor
+
+        h, w = self.input_size
+        cache_dir = Path(cache_dir) if cache_dir else self.img_dir.parent
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        cache_file = cache_dir / f"img_{self.img_dir.name}_cache_h{h}_w{w}_{len(self)}.array"
+        shapes_file = cache_file.with_suffix(".shapes.npy")
+        fresh = not (cache_file.exists() and shapes_file.exists())
+        self._cache = np.memmap(cache_file, shape=(len(self), h, w, 3), dtype=np.uint8,
+                                mode="w+" if fresh else "r+")
+        if not fresh:
+            shapes = np.load(shapes_file)
+            self._cache_shapes = shapes[:, :2].copy()
+            self._orig_shapes = shapes[:, 2:].copy()
+            return
+        self._cache_shapes = np.zeros((len(self), 2), dtype=np.int32)
+        self._orig_shapes = np.zeros((len(self), 2), dtype=np.int32)
+
+        def resize_one(i):
+            img = self.load_img(i)
+            r = min(h / img.shape[0], w / img.shape[1])
+            rh, rw = int(img.shape[0] * r), int(img.shape[1] * r)
+            self._cache_shapes[i] = (rh, rw)
+            self._orig_shapes[i] = img.shape[:2]
+            self._cache[i, :rh, :rw] = cv2.resize(img, (rw, rh), interpolation=cv2.INTER_LINEAR)
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(resize_one, range(len(self))))
+        self._cache.flush()
+        np.save(shapes_file, np.concatenate([self._cache_shapes, self._orig_shapes], 1))
+
     def pull_item(self, idx: int):
-        """Raw (img, boxes (N, 4) xyxy, classes (N,))."""
+        """Raw (img, boxes (N, 4) xyxy, classes (N,)). With the cache, the
+        cached image (its canvas or its content) and the boxes scaled by
+        the cache's ratio min(h/H, w/W)."""
         ann = self.load_annotations(idx)
-        return self.load_img(idx), ann[:, 1:5].copy(), ann[:, 0].copy()
+        boxes, classes = ann[:, 1:5].copy(), ann[:, 0].copy()
+        if self._cache is not None:
+            h, w = self.input_size
+            H, W = self._orig_shapes[idx]
+            boxes = boxes * min(h / H, w / W)
+            if self.cached_canvas:
+                return np.asarray(self._cache[idx]), boxes, classes
+            rh, rw = self._cache_shapes[idx]
+            return np.asarray(self._cache[idx, :rh, :rw]), boxes, classes
+        return self.load_img(idx), boxes, classes
+
+    def _mosaic(self, idx: int, rng: np.random.Generator):
+        indices = [idx] + [int(rng.integers(0, len(self))) for _ in range(3)]
+        rng.shuffle(indices)
+        imgs, boxes, labels = [], [], []
+        for i in indices:
+            im, b, l = self.pull_item(i)
+            imgs.append(im)
+            boxes.append(b)
+            labels.append(l)
+        return mosaic4(imgs, boxes, labels, mosaic_shape=[2 * s for s in self.input_size],
+                       fill_value=self.aug.fill_value, rng=rng)
 
     def get(self, idx: int, rng: np.random.Generator, enable_aug: bool | None = None):
         """One sample: (img uint8 HxWx3, boxes (N, 4) xyxy float32, classes
@@ -123,12 +194,19 @@ class DetectionDataset:
         valid boxes are empty, then gives up and returns the raw item."""
         if enable_aug is None:
             enable_aug = self.enable_aug
-        if enable_aug:
-            raise NotImplementedError(
-                "host augmentation (mosaic, mixup, perspective, HSV) is not ported yet "
-                "(ROADMAP A6): close it (no_data_aug_epoch >= total_epoch)")
         for _attempt in range(10):
-            img, boxes, labels = self.pull_item(idx)
+            # pull_item draws nothing from rng, so the item is read only
+            # when mosaic does not replace it: the same bytes and draws as
+            # the JAX package, which reads it first in every case
+            if enable_aug and rng.random() < self.aug.mosaic_p:
+                img, boxes, labels = self._mosaic(idx, rng)
+                if rng.random() < self.aug.mixup_p:
+                    im2, b2, l2 = self._mosaic(int(rng.integers(0, len(self))), rng)
+                    img, boxes, labels = mixup(img, boxes, labels, im2, b2, l2, rng)
+            else:
+                img, boxes, labels = self.pull_item(idx)
+            if enable_aug:
+                img, boxes, labels = apply_transform_chain(img, boxes, labels, self.aug, rng)
             if len(boxes):
                 keep = valid_boxes_mask(boxes)
                 boxes, labels = boxes[keep], labels[keep]

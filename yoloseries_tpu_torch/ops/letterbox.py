@@ -60,7 +60,10 @@ def letterbox_image(img: np.ndarray, dst_size, stride: int = 64,
     info = letterbox_plan((org_h, org_w), tuple(dst_size), stride, only_downscale)
     new_h = org_h if info.scale == 1.0 else int(org_h * info.scale)
     new_w = org_w if info.scale == 1.0 else int(org_w * info.scale)
-    resized = img[cv2_nearest_indices(new_h, org_h)][:, cv2_nearest_indices(new_w, org_w)]
+    if (new_h, new_w) == (org_h, org_w):  # the index map is the identity: no gather
+        resized = img
+    else:
+        resized = img[cv2_nearest_indices(new_h, org_h)][:, cv2_nearest_indices(new_w, org_w)]
     out = np.full(
         (info.pad_top + new_h + info.pad_bottom,
          info.pad_left + new_w + info.pad_right, img.shape[2]),

@@ -4,8 +4,10 @@
 Layout: ``ckpt_dir/<step>/state.pt`` (``torch.save`` of the model
 ``state_dict``, the optimizer state, the EMA, its count, the balances and
 the step) and ``ckpt_dir/<step>/hyp.json`` (the JSON-able hyp entries), the
-newest ``keep`` steps kept. Loading the JAX package's Orbax checkpoints
-needs JAX and is not done here (ROADMAP A10).
+newest ``keep`` steps kept. ``restore_weights`` loads a checkpoint's EMA
+(or raw) weights into a model for the ``val`` and ``detect`` entry points.
+Loading the JAX package's Orbax checkpoints needs JAX and is not done here
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_weights", "latest_step"]
 
 
 def _json_ok(v) -> bool:
@@ -72,3 +74,20 @@ def restore_checkpoint(ckpt_dir, state, step: int | None = None):
     state.balances = saved["balances"].to(dev)
     state.step = int(saved["step"])
     return state, step
+
+
+def restore_weights(model, ckpt_dir, params: str = "ema", device=None):
+    """Build a train state around ``model`` (on ``device``), restore the
+    newest checkpoint of ``ckpt_dir`` into it and leave ``model`` holding
+    its EMA weights (``params="ema"``) or its trained ones (``"raw"``).
+    Returns the step, None when there is no checkpoint."""
+    from .optim import OptimizerConfig
+    from .state import create_train_state
+
+    if params not in ("ema", "raw"):
+        raise ValueError(f"params {params!r}: 'ema' or 'raw'")
+    state, step = restore_checkpoint(
+        ckpt_dir, create_train_state(model, OptimizerConfig(), device=device))
+    if step is not None and params == "ema":
+        model.load_state_dict(state.ema)
+    return step

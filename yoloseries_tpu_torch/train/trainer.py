@@ -1,21 +1,23 @@
 """The Trainer: one loop over (model, family loss, decode); counterpart of
 ``yoloseries_tpu/train/trainer.py``.
 
-* ``__init__``: datasets and loaders, the model, the optimizer groups, the
-  family's loss and decode, the train state, the evaluator;
+* ``__init__``: datasets and loaders (the train set augmented, and cached
+  when ``cache_images``; the val set neither; worker processes by the
+  loader's default), the model, the optimizer groups, the family's loss and
+  decode, the train state, the evaluator;
 * ``train()``: epochs of updates through ``make_train_step`` (accumulated
   micro-batches, one optimizer and one EMA update each), the batches copied
   to the card from pinned memory; the metrics stay on the device until a
-  log point reads them all at once;
+  log point reads them all at once. Augmentation closes at the first epoch
+  of the last ``no_aug_epochs``, with a checkpoint there;
 * ``evaluate()``: mAP over the val set on the EMA weights, at the protocol
   config (conf .001, iou .65, K=4096: the NMS runs in B1, ``nms_greedy``);
 * ``save()`` / ``load()``: checkpoints of the whole train state.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; raises without
-a card. Not ported yet, and raising when asked for: host augmentation and
-the image cache (ROADMAP A6), ``device_aug`` (A7), ``per_replica_bn`` (A8),
-``remat`` and ``s2d_stem`` (A1), bf16 compute (A2). TensorBoard, the
-profiler window and the model summary wait for A10.
+a card. Not ported yet, and raising when asked for: ``device_aug`` (ROADMAP
+A7), ``per_replica_bn`` (A8), ``remat`` and ``s2d_stem`` (A1), bf16 compute
+(A2). TensorBoard, the profiler window and the model summary wait for A10.
 """
 
 from __future__ import annotations
@@ -50,14 +52,8 @@ __all__ = ["Trainer"]
 def _check_ported(cfg: "TrainConfig", compute_dtype) -> None:
     """Raise for a setting that needs a module not ported yet."""
     hyp = cfg.hyp
-    if cfg.no_aug_epochs < cfg.total_epochs:
-        raise NotImplementedError(
-            "host augmentation is not ported yet (ROADMAP A6): set no_data_aug_epoch >= "
-            f"total_epoch (now {cfg.no_aug_epochs} < {cfg.total_epochs})")
-    if cfg.device_aug or cfg.device_cache:  # before the cache: device_aug turns it on
+    if cfg.device_aug or cfg.device_cache:
         raise NotImplementedError("device_aug / device_cache are not ported yet (ROADMAP A7)")
-    if cfg.cache_images:
-        raise NotImplementedError("the image cache is not ported yet (ROADMAP A6)")
     if hyp.get("per_replica_bn", False):
         raise NotImplementedError("per_replica_bn (data parallelism) is not ported yet "
                                   "(ROADMAP A8)")
@@ -89,7 +85,8 @@ class Trainer:
         self.log = log
 
         self.train_dataset = DetectionDataset(train_dirs[0], train_dirs[1], names_path,
-                                              input_size=cfg.input_size, aug=cfg.aug)
+                                              input_size=cfg.input_size, aug=cfg.aug,
+                                              enable_aug=True, cache_images=cfg.cache_images)
         self.num_class = self.train_dataset.num_class
         self.val_dataset = None
         if val_dirs is not None:
@@ -221,15 +218,13 @@ class Trainer:
     def train(self, epochs: int | None = None, eval_fn=None):
         cfg = self.cfg
         total = epochs or cfg.total_epochs
-        if total - cfg.no_aug_epochs > self.start_epoch:
-            raise NotImplementedError(
-                "host augmentation is not ported yet (ROADMAP A6): epochs before "
-                f"{total - cfg.no_aug_epochs} would run it")
-        if cfg.no_aug_epochs > 0:
-            self.train_loader.close_data_aug()
-            self.log("data augmentation closed for final epochs")
-            self.save(self.start_epoch * self.steps_per_epoch)
+        aug_closed = False
         for epoch in range(self.start_epoch, total):
+            if not aug_closed and cfg.no_aug_epochs > 0 and epoch >= total - cfg.no_aug_epochs:
+                self.train_loader.close_data_aug()
+                aug_closed = True
+                self.log("data augmentation closed for final epochs")
+                self.save(epoch * self.steps_per_epoch)
             t_epoch = time.time()
             metrics = {}
             for it in range(self.steps_per_epoch):
@@ -317,7 +312,7 @@ class Trainer:
         return out
 
     def close(self):
-        """Stop the loaders' threads and close the log file."""
+        """Stop the loaders' workers and close the log file."""
         self.train_loader.stop()
         if self._val_loader is not None:
             self._val_loader.stop()
