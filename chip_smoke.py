@@ -68,6 +68,24 @@ Phases (any failure exits non-zero and prints no result line):
    its twin at its candidates, and timed there); ``cli/detect.py
    --ckpt-dir`` on 6 images (B=8, K=4096: B1, held against its twin). The launch
    counters are zeroed before ``val`` and before ``detect`` and read after;
+10. augmentation rendered on the card (``data/device_aug.py``): the digest
+   batch of phase 9 as plans (cache plans over the image cache, pixel plans
+   over the files) rendered on the card and on the CPU (at most 1 LSB on
+   0.1% of the bytes, expected 0), the cache plans' sha256
+   (``tests/test_torch_port_device_aug.py`` pins the CPU's), the pixel
+   plans' targets against the host pipeline's (exactly) and their pixels
+   against the card host's cv2 (at most 5% of bytes off by more than 2,
+   mean under 1);
+   then the ``Trainer`` with ``device_aug`` and ``device_cache`` on phase
+   9's train set, 4 one-update epochs, printed beside phase 9's loop, and
+   ``evaluate()`` after them (B1 at K=4096, held against its twin; the
+   launch counters zeroed before ``train()``); the planning loader alone
+   (cache plans with processes and threads, byte-identical; pixel plans
+   with processes); for a batch of 128 of each kind the H2D bytes and ms,
+   the render's ms (CUDA events), peak memory and bound in bytes,
+   ``repack_tiles`` alone; the host syncs of one update from a plan batch
+   (copy, render, step: must be 0) and its profiler split, the render's
+   share included;
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
@@ -923,20 +941,34 @@ def step_alone_ms(trainer, host_batch, n=3):
     return start.elapsed_time(end) / n
 
 
-def loader_alone_ms(dataset, cfg, n=3, use_processes=None):
-    """ms per batch of a fresh loader over ``dataset``, built as the Trainer
-    builds it (``use_processes`` None: the loader's default), with nothing
-    else running: the consumer takes each batch at once, so batches arrive
-    as fast as the loader makes them (the median gap between arrivals after
-    the first batch). Returns (ms, "processes" or "threads", sha256 of each
-    batch's images and targets)."""
+def batch_digest(batch) -> str:
+    """sha256 of every array of a batch in key order, a plan batch's fields
+    included."""
     import hashlib
 
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = batch[k]
+        for a in ([v[f] for f in sorted(v)] if isinstance(v, dict) else [v]):
+            if isinstance(a, np.ndarray):
+                h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def loader_alone_ms(dataset, cfg, n=3, use_processes=None, digest=True, **loader_kw):
+    """ms per batch of a fresh loader over ``dataset``, built as the Trainer
+    builds it (``use_processes`` None: the loader's default; ``loader_kw``:
+    ``device_aug``, ``device_cache``), with nothing else running: the
+    consumer takes each batch at once, so batches arrive as fast as the
+    loader makes them (the median gap between arrivals after the first
+    batch). Returns (ms, "processes" or "threads", sha256 of each batch, or
+    none without ``digest``: hashing a batch of pixel plans, 1.26 GB at 640
+    px, takes longer than making it)."""
     from yoloseries_tpu_torch.data.loader import DataLoader
 
     loader = DataLoader(dataset, batch_size=cfg.batch_size * cfg.accumulate,
                         max_labels=cfg.max_labels, seed=cfg.seed + 1, workers=cfg.num_workers,
-                        use_processes=use_processes)
+                        use_processes=use_processes, **loader_kw)
     mode = "threads" if loader._proc_pool is None else "processes"
     if use_processes and mode == "threads":
         fail("the loader runs no worker processes")
@@ -945,8 +977,8 @@ def loader_alone_ms(dataset, cfg, n=3, use_processes=None):
         for _ in range(n + 1):
             batch = next(loader)
             arrivals.append(time.perf_counter())
-            digests.append(hashlib.sha256(batch["img"].tobytes() + batch["ann"].tobytes())
-                           .hexdigest())
+            if digest:
+                digests.append(batch_digest(batch))
     finally:
         loader.stop()
     return float(np.median(np.diff(arrivals))) * 1e3, mode, digests
@@ -967,14 +999,15 @@ def host_split(dataset, cfg, n=32):
     return (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
 
 
-def step_syncs(trainer, host_batch):
+def step_syncs(trainer, host_batch, with_copy=False):
     """Where one update makes the host wait for the card
-    (``torch.cuda.set_sync_debug_mode``: a warning per synchronizing call)."""
+    (``torch.cuda.set_sync_debug_mode``: a warning per synchronizing call);
+    ``with_copy``: the ``Trainer``'s copy of the batch (and its render) too."""
     import traceback
     import warnings
 
     step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
-    batch = trainer._device_batch(host_batch)
+    batch = None if with_copy else trainer._device_batch(host_batch)
     torch.cuda.synchronize()
     where = []
 
@@ -990,6 +1023,8 @@ def step_syncs(trainer, host_batch):
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
+            if with_copy:
+                batch = trainer._device_batch(host_batch)
             trainer.state, _ = step(trainer.state, batch)
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -997,15 +1032,15 @@ def step_syncs(trainer, host_batch):
     return where
 
 
-def h2d_ms(trainer, host_batch, n=3):
-    """The ``Trainer``'s copy of one batch to the card on an idle card:
-    host ms of the call (pinning, enqueue) and host ms until the copy has
-    landed (medians of ``n``)."""
+def h2d_ms(copy, n=3):
+    """A copy to the card on an idle card (``copy()``, e.g. the
+    ``Trainer``'s of one batch): host ms of the call (pinning, enqueue) and
+    host ms until the copy has landed (medians of ``n``)."""
     calls, landed = [], []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer._device_batch(host_batch)
+        copy()
         calls.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         landed.append((time.perf_counter() - t0) * 1e3)
@@ -1060,6 +1095,7 @@ TRAIN_GROUPS = (  # (group, how it is found): CPU ops or ranges, device time wit
     ("  of it the winner step", ("yolov5_loss.winners",)),
     ("optimizer", ("train.optimizer",)),
     ("EMA", ("train.ema",)),
+    ("render (device aug)", ("train.render",)),
 )
 
 
@@ -1207,7 +1243,7 @@ def phase_training(card):
                 f"ms, collate (letterbox into the batch) {collate_ms:.2f} ms [{card}]")
             host_batch = next(trainer.train_loader)
             trainer.train_loader.stop()
-            h2d_call, h2d_landed = h2d_ms(trainer, host_batch)
+            h2d_call, h2d_landed = h2d_ms(lambda: trainer._device_batch(host_batch))
             alone = step_alone_ms(trainer, host_batch)
             syncs = step_syncs(trainer, host_batch)
             log(f"  apart, on a quiet host: the loader alone {loader:.1f} ms per batch of "
@@ -1496,6 +1532,313 @@ def phase_recipe(card):
             "val_captured": val_calls[0], "phase_s": wall}
 
 
+# ------------------------------------------- the render on the card (A7)
+
+AUG_UPDATES = 4  # one-update epochs, none closed
+RENDER_MAX_DIFF, RENDER_MAX_FRAC = 1, 0.001  # card vs CPU render: per byte, and share differing
+HOST_BAD_FRAC, HOST_MEAN = 0.05, 1.0  # render vs cv2: share off by > 2, and mean |diff|
+
+
+def render_digest_batch(dataset_cls, loader_cls, img_dir, lab_dir, cache_dir, cached=True):
+    """The first plan batch of 8 that ``loader_cls`` makes with ``device_aug``
+    over ``aug_digest``'s folder, at 640 px, seed 5, with the preset's
+    augmentation: cache plans over the image cache, or (``cached`` False)
+    pixel plans over the files. Either package's dataset and loader.
+    Returns (batch, dataset)."""
+    ds = dataset_cls(img_dir, lab_dir, input_size=(640, 640), enable_aug=True,
+                     cache_images=cached, cache_dir=cache_dir)
+    loader = loader_cls(ds, batch_size=8, max_labels=300, seed=DIGEST_SEED, use_processes=False,
+                        device_aug=True, device_cache=cached)
+    try:
+        batch = next(loader)
+    finally:
+        loader.stop()
+    return batch, ds
+
+
+def render_plans(batch, dataset, device, cache=None):
+    """``batch``'s plans rendered on ``device`` with the port's
+    ``render_batch`` and ``dataset``'s knobs; cache plans read ``cache``
+    (the dataset's image cache, uploaded here when not given)."""
+    from yoloseries_tpu_torch.data.device_aug import render_batch, render_method, render_staged
+
+    aug = dataset.aug
+    plan = {k: torch.from_numpy(v).to(device) for k, v in batch["plan"].items()}
+    tiles = torch.from_numpy(batch["tiles"]).to(device) if "tiles" in batch else None
+    if tiles is None and cache is None:
+        cache = torch.from_numpy(np.ascontiguousarray(dataset._cache)).to(device)
+    return render_batch(tiles, plan, batch["dst_hw"], dataset.input_size, aug.fill_value,
+                        aug.fill_value, render_method(aug), cache, render_staged(aug))
+
+
+def render_bound_ms(batch):
+    """The least time of a render on the card, by bytes: every tile pixel
+    that a rect covers read once (both mixup layers), the plan's fields read
+    once, the uint8 output written once, over the card's memory rate.
+    Returns (ms, bytes)."""
+    rects = batch["plan"]["rects"]
+    covered = np.clip(rects[..., 2] - rects[..., 0], 0, None) * np.clip(
+        rects[..., 3] - rects[..., 1], 0, None)
+    n = len(batch["ann"])
+    h, w = batch["dst_hw"]
+    moved = (float(covered.sum()) * 3 + sum(v.nbytes for v in batch["plan"].values())
+             + n * h * w * 3)
+    return moved / HBM_BYTES_PER_S * 1e3, moved
+
+
+def render_vs_cpu(batch, dataset, card_img):
+    """The same plans rendered on the CPU: (bytes differing, largest
+    |diff|, their share)."""
+    cpu = render_plans(batch, dataset, torch.device("cpu")).numpy().astype(np.int16)
+    diff = np.abs(card_img.cpu().numpy().astype(np.int16) - cpu)
+    return int((diff > 0).sum()), int(diff.max()), float((diff > 0).mean())
+
+
+def render_profile(render, card, top=6):
+    """Device time of one render by kernel (torch.profiler): the launches,
+    the busy time and the heaviest kernels. Returns [(ms, launches, name)]
+    of the heaviest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        log("  the render's kernels: the profiler recorded no device time (not measured)")
+        return None
+    log(f"  the render's kernels: {sum(r[1] for r in rows)} launches, {busy:.2f} ms of device "
+        f"time [{card}]")
+    for ms, n, name in rows[:top]:
+        log(f"    {ms / busy * 100:5.1f}%  {ms:8.3f} ms  x{n:<4d} {name[:80]}")
+    return [(ms, n, name[:80]) for ms, n, name in rows[:top]]
+
+
+def phase_device_aug(card, recipe):
+    """Augmentation rendered on the card: the digest batch (card against
+    CPU, labels against the host pipeline, pixels against its cv2), the
+    render at B=128 x 640 in both modes, the planning loader alone, the
+    copies, and the ``Trainer`` with ``device_aug`` and ``device_cache``
+    for 4 updates, then ``evaluate()`` through B1."""
+    import hashlib
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
+    from yoloseries_tpu_torch.data.device_aug import render_batch, render_method, repack_tiles
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+    from yoloseries_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
+                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
+    batch = TRAIN_BATCH * TRAIN_ACCUMULATE
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        train_dirs = synthetic_folder(tmp / "train", batch, seed=2)  # phase 9's train set
+        val_dirs = synthetic_folder(tmp / "val", TRAIN_BATCH, seed=3)
+        digest_dirs = synthetic_folder(tmp / "digest", 8, seed=DIGEST_SEED)
+        log(f"synthetic folder set: {batch} train, {TRAIN_BATCH} val and 8 digest PNGs in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the digest batch: card against CPU; then, over the files (the
+        # cache scales boxes in f64, which the host warps and a plan first
+        # rounds to f32, as in the JAX package), targets and pixels against
+        # the host pipeline
+        checks = {}
+        for mode, cached in (("cache", True), ("tiles", False)):
+            plans, ds = render_digest_batch(DetectionDataset, DataLoader, *digest_dirs[:2],
+                                            tmp / "digest_cache", cached=cached)
+            img = render_plans(plans, ds, torch.device("cuda"))
+            torch.cuda.synchronize()
+            if img.device.type != "cuda" or img.dtype != torch.uint8:
+                fail(f"the render gave {img.dtype} on {img.device}")
+            checks[mode] = (plans, ds, img, *render_vs_cpu(plans, ds, img))
+        digest = hashlib.sha256(checks["cache"][2].cpu().numpy().tobytes()).hexdigest()
+        plans, ds, img = checks["tiles"][:3]
+        host_loader = DataLoader(ds, batch_size=8, max_labels=300, seed=DIGEST_SEED,
+                                 use_processes=False)
+        try:
+            host = next(host_loader)
+        finally:
+            host_loader.stop()
+        same_ann = host["ann"].tobytes() == plans["ann"].tobytes()
+        diff = np.abs(img.cpu().numpy().astype(np.int16) - host["img"].astype(np.int16))
+        bad, mean = float((diff > 2).mean()), float(diff.mean())
+        log(f"rendered digest batch sha256 (8 x 640 px, preset augmentation, cache plans, seed "
+            f"{DIGEST_SEED}, method {render_method(ds.aug)}): {digest}")
+        for mode, (*_, n_diff, worst, frac) in checks.items():
+            log(f"  {mode} plans, card against CPU: {n_diff} bytes differ (largest {worst}, "
+                f"{frac * 100:.4f}%; limits {RENDER_MAX_DIFF} and {RENDER_MAX_FRAC * 100}%)")
+        log(f"  pixel plans over the files against the host pipeline: ann equal {same_ann}; "
+            f"against the host's cv2 {cv2.__version__}, {bad * 100:.3f}% of bytes off by > 2 "
+            f"(limit {HOST_BAD_FRAC * 100}%), mean |diff| {mean:.4f} (limit {HOST_MEAN}) "
+            f"[{card}]")
+        for mode, (*_, n_diff, worst, frac) in checks.items():
+            if worst > RENDER_MAX_DIFF or frac > RENDER_MAX_FRAC:
+                fail(f"the {mode} render on the card disagrees with the CPU's")
+        if not (same_ann and bad <= HOST_BAD_FRAC and mean < HOST_MEAN):
+            fail("the rendered digest batch disagrees with the host pipeline")
+        out.update(render_digest=digest, card_vs_cpu={k: v[3:] for k, v in checks.items()},
+                   vs_host_bad_frac=bad, vs_host_mean=mean)
+        del checks, plans, img
+
+        hyp = {**recipe_hyp(), "total_epoch": AUG_UPDATES, "no_data_aug_epoch": 0,
+               "device_aug": True, "device_cache": True, "save_ckpt_every": 1000}
+        cfg = TrainConfig.from_hyp(hyp, num_class=80, model="yolov5s",
+                                   output_dir=str(tmp / "run"))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, train_dirs[:2], val_dirs=val_dirs[:2], names_path=train_dirs[2],
+                          log_fn=lambda *a: log("  trainer:", *a), device="cuda")
+        init_s = time.perf_counter() - t0
+        try:
+            loader = trainer.train_loader
+            if not (loader.device_aug and loader.device_cache and loader._proc_pool is not None):
+                fail("the Trainer's loader makes no cache plans in worker processes")
+            ds = trainer.train_dataset
+            cache = trainer._dev_cache
+            calib = collate_batch([trainer.val_dataset.get(i, np.random.default_rng(i))
+                                   for i in range(8)], cfg.input_size, cfg.max_labels)["img"]
+            calib = torch.from_numpy(calib).cuda().permute(0, 3, 1, 2).float() / 255
+            model = trainer.state.model
+            settle_bn(model, calib)
+            widen_head(model.eval(), calib)
+            trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            ends, host_t = timed_updates(trainer)
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            with record_nms_inputs() as rec:
+                t0 = time.perf_counter()
+                result = trainer.evaluate()
+                eval_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            bad_losses = [h for h in trainer.history
+                          if not all(np.isfinite(v) for v in h.values())]
+            if len(trainer.history) != AUG_UPDATES or bad_losses:
+                fail(f"device aug: {len(trainer.history)} updates, non-finite {bad_losses}")
+            mismatches, kept, live = greedy_mismatches(rec["nms_greedy"])
+            per_update = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+            between = [(b[0] - a[1]) * 1e3 for a, b in zip(host_t, host_t[1:])]
+            for i, h in enumerate(trainer.history):
+                log(f"  update {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(h.items())))
+            log(f"device aug: yolov5s 640 f32, B={TRAIN_BATCH} x {TRAIN_ACCUMULATE}, preset "
+                f"augmentation rendered on the card from the image cache on the card, "
+                f"{AUG_UPDATES} one-update epochs: Trainer built in {init_s:.1f} s, "
+                f"{train_s:.1f} s for the updates; ms between update ends "
+                f"{', '.join(f'{x:.1f}' for x in per_update)} (phase 9, host augmentation, "
+                f"same run: {', '.join(f'{x:.1f}' for x in recipe['ms_between_update_ends'])}); "
+                f"host ms between steps {', '.join(f'{x:.1f}' for x in between)} [{card}]")
+            log(f"  evaluate() after them, {TRAIN_BATCH} val images: mAP {result['map']:.6f} in "
+                f"{eval_s:.1f} s; launches {launches}; nms_greedy at its "
+                f"{len(rec['nms_greedy'])} candidate sets: {live} live, {kept} kept, "
+                f"{mismatches} mismatches [{card}]")
+            if launches["nms_greedy"] == 0 or mismatches or kept == 0:
+                fail("evaluate() after the device-aug updates: no B1 launch, no keeper or a "
+                     "mismatch")
+
+            # the planning loader alone: cache plans with processes and
+            # threads (the same bytes), pixel plans with processes
+            plan_ms = {}
+            for name, kw in (("cache, processes", dict(use_processes=True, device_cache=True)),
+                             ("cache, threads", dict(use_processes=False, device_cache=True)),
+                             ("tiles, processes", dict(use_processes=True, device_cache=False,
+                                                       digest=False))):
+                plan_ms[name] = loader_alone_ms(ds, cfg, device_aug=True, **kw)
+            if plan_ms["cache, processes"][2] != plan_ms["cache, threads"][2]:
+                fail("the planning loader's processes and threads made different batches")
+            log("  the planning loader alone, ms per batch of "
+                f"{batch}: " + ", ".join(f"{k} {v[0]:.1f}" for k, v in plan_ms.items())
+                + f" (phase 9's augmenting loader: processes {recipe['loader_processes_ms']:.1f},"
+                f" threads {recipe['loader_threads_ms']:.1f}) [{card}]")
+
+            # one batch of each mode: the copy, the render and its bound
+            cache_batch = next(loader)
+            loader.stop()
+            tiles_loader = DataLoader(ds, batch_size=batch, max_labels=cfg.max_labels,
+                                      seed=cfg.seed + 1, workers=cfg.num_workers,
+                                      device_aug=True)
+            try:
+                tiles_batch = next(tiles_loader)
+            finally:
+                tiles_loader.stop()
+            bound, moved = render_bound_ms(cache_batch)
+            log(f"  the render's bound: {moved / 1e6:.1f} MB moved (covered tile pixels, plan "
+                f"fields, the uint8 output) = {bound:.4f} ms at 3.35 TB/s [{card}]")
+            renders = {}
+            for mode, hb in (("cache", cache_batch), ("tiles", tiles_batch)):
+                arrays = {**hb["plan"], "ann": hb["ann"]}
+                if "tiles" in hb:
+                    arrays["tiles"] = hb["tiles"]
+                nbytes = sum(a.nbytes for a in arrays.values())
+                call, landed = h2d_ms(lambda: trainer._to_device(arrays))
+                dev = trainer._to_device(arrays)
+                tiles = dev.pop("tiles", None)
+                args = (hb["dst_hw"], ds.input_size, ds.aug.fill_value, ds.aug.fill_value,
+                        render_method(ds.aug), cache if tiles is None else None, False)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                render_batch(tiles, dev, *args)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                ms = cuda_ms(lambda: render_batch(tiles, dev, *args), iters=5, warmup=1)
+                renders[mode] = {"h2d_bytes": nbytes, "h2d_call_ms": call, "h2d_landed_ms": landed,
+                                 "render_ms": ms, "peak_gib": peak}
+                repacked = ", repack included" if mode == "cache" else ""
+                log(f"  {mode} plans, B={batch} at 640: H2D {nbytes / 2**20:.2f} MiB, "
+                    f"{call:.2f} ms to return, {landed:.2f} ms until landed; render "
+                    f"{ms:.2f} ms (CUDA events, mean of 5{repacked}), {ms / bound:.0f}x its "
+                    f"bound, peak {peak:.2f} GiB above its inputs [{card}]")
+                if mode == "cache":
+                    cache_render = (dev, *args)
+            p = cache_batch["plan"]
+            ids, off = (torch.from_numpy(p[k]).cuda() for k in ("img_ids", "tile_off"))
+            repack = cuda_ms(lambda: repack_tiles(cache, ids, off), iters=5, warmup=1)
+            log(f"  of the cache render, repack_tiles alone {repack:.2f} ms [{card}]")
+            render_kernels = render_profile(lambda: render_batch(None, *cache_render), card)
+            syncs = step_syncs(trainer, cache_batch, with_copy=True)
+            log(f"  one update from a cache-plan batch (copy, render, step): {len(syncs)} host "
+                f"syncs [{card}]")
+            for where in syncs[:5]:
+                log(f"    sync: {where}")
+            if syncs:
+                fail("the device-aug update makes the host wait for the card")
+            profile = profile_update(trainer, card, cache_batch)
+        finally:
+            trainer.close()
+    wall = time.perf_counter() - t_phase
+    log(f"device-aug phase: {wall:.1f} s [{card}]")
+    out.update(ms_between_update_ends=per_update, host_between_ms=between,
+               recipe_ms_between_update_ends=recipe["ms_between_update_ends"],
+               loss_first=trainer.history[0]["tot_loss"], loss_last=trainer.history[-1]["tot_loss"],
+               map=result["map"], launches=launches, planning_loader_ms={
+                   k: v[0] for k, v in plan_ms.items()},
+               render=renders, render_bound_ms=bound, render_bound_bytes=moved,
+               repack_ms=repack, render_kernels=render_kernels, syncs=len(syncs),
+               profile=profile, phase_s=wall)
+    return out
+
+
+
+
 def b1_row(captured, launches, where, card):
     """B1 at one later path's candidates (``captured``: boxes, scores,
     thr of one call): times beside the plain twin, the bound and the chain,
@@ -1570,6 +1913,11 @@ def main():
     b1["recipe"] = recipe
     for row in rows:  # detect's launches, whichever kernel its shape reached
         row["launches"] += recipe["detect_launches"][row["name"]]
+    log("== 10. augmentation rendered on the card")
+    aug = phase_device_aug(card, recipe)
+    for row in rows:
+        row["launches"] += aug["launches"][row["name"]]
+    b1["device_aug"] = aug
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

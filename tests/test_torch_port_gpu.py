@@ -1,5 +1,6 @@
 """Port kernels on the card: each CUDA kernel against its plain twin, index
-for index, and the serving path through the kernels.
+for index, the serving path through the kernels, and the augmentation
+render on the card against the CPU's, byte for byte.
 
 Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
 card is visible (decided at run time, never at import). On a machine with a
@@ -232,5 +233,85 @@ def test_trainer_evaluate_launches_nms_greedy(cuda, tmp_path):
         out = trainer.evaluate()
         assert nms_greedy.nms_greedy.launches == n + 2  # one per val batch of 2
         assert 0.0 <= out["map"] <= 1.0
+    finally:
+        trainer.close()
+
+
+def _aug_folder(root, n=6, size=128):
+    """``n`` PNGs under ``size`` px with 2-3 filled boxes each."""
+    from PIL import Image
+
+    img_dir, lab_dir = root / "img", root / "lab"
+    img_dir.mkdir()
+    lab_dir.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(n):
+        h, w = int(rng.integers(80, size + 1)), int(rng.integers(80, size + 1))
+        img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(2, 4))):
+            x1, y1 = int(rng.integers(0, w - 40)), int(rng.integers(0, h - 40))
+            x2, y2 = x1 + int(rng.integers(20, 40)), y1 + int(rng.integers(20, 40))
+            img[y1:y2, x1:x2] = [220, 60 * (i % 3), 30]
+            lines.append(f"{i % 3} {x1} {y1} {x2} {y2}")
+        Image.fromarray(img).save(img_dir / f"{i}.png")
+        (lab_dir / f"{i}.txt").write_text("\n".join(lines) + "\n")
+    return img_dir, lab_dir
+
+
+@pytest.mark.parametrize("mode", ["gather", "separable", "staged", "cache"])
+def test_render_on_card_matches_cpu(cuda, tmp_path, mode):
+    """The same plans rendered on the card and on the CPU: the same bytes
+    (elementwise f32 in one order, true divisions, no fused multiply-add
+    across ops)."""
+    from yoloseries_tpu_torch.data import AugmentConfig, DetectionDataset
+    from yoloseries_tpu_torch.data import device_aug as da
+    from yoloseries_tpu_torch.data.loader import collate_plan_batch
+
+    knobs = dict(mosaic_p=1.0, mixup_p=0.5, perspective_p=1.0, hsv_p=1.0, fliplr_p=0.5,
+                 flipud_p=0.5, cutout_p=0.5)
+    if mode == "separable":
+        knobs["perspective"] = 0.0
+    if mode == "staged":
+        knobs.update(blur_p=0.7, scale_jitting_p=0.7)
+    img_dir, lab_dir = _aug_folder(tmp_path)
+    ds = DetectionDataset(img_dir, lab_dir, input_size=(128, 128),
+                          aug=AugmentConfig(input_size=(128, 128), **knobs), enable_aug=True,
+                          cache_images=mode == "cache", cache_dir=tmp_path / "cache")
+    plans = [da.plan_sample(ds, i, np.random.default_rng((7, i)), mode != "cache")
+             for i in range(6)]
+    batch = collate_plan_batch(plans, 128, 20)
+    out = {}
+    for dev in ("cpu", cuda):
+        plan = {k: torch.from_numpy(v).to(dev) for k, v in batch["plan"].items()}
+        tiles = torch.from_numpy(batch["tiles"]).to(dev) if "tiles" in batch else None
+        cache = (torch.from_numpy(np.ascontiguousarray(ds._cache)).to(dev)
+                 if mode == "cache" else None)
+        img = da.render_batch(tiles, plan, (128, 128), (128, 128), method=da.render_method(ds.aug),
+                              cache=cache, staged=da.render_staged(ds.aug))
+        assert img.device.type == torch.device(dev).type and img.dtype == torch.uint8
+        out[str(dev)] = img.cpu().numpy()
+    assert out["cpu"].tobytes() == out["cuda"].tobytes()
+
+
+def test_trainer_with_device_aug_on_card(cuda, tmp_path):
+    """The Trainer with ``device_aug`` and ``device_cache``: the cache on the
+    card, the batches rendered there, one finite update."""
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.train import Trainer
+
+    img_dir, lab_dir = _aug_folder(tmp_path, n=4)
+    hyp = {"input_img_size": [128, 128], "batch_size": 2, "accumulate_loss_step": 4,
+           "total_epoch": 1, "no_data_aug_epoch": 0, "num_workers": 2, "save_ckpt_every": 10,
+           "device_aug": True, "device_cache": True}
+    cfg = TrainConfig.from_hyp(hyp, num_class=3, model="yolov5s", max_labels=8,
+                               output_dir=str(tmp_path / "run"))
+    trainer = Trainer(cfg, (img_dir, lab_dir), log_fn=lambda *a: None, device=cuda)
+    try:
+        assert trainer._dev_cache.device.type == "cuda"
+        batch = trainer._device_batch(next(trainer.train_loader))
+        assert batch["img"].device.type == "cuda" and batch["img"].shape == (4, 128, 128, 3)
+        trainer.train()
+        assert np.isfinite(trainer.history[0]["tot_loss"])
     finally:
         trainer.close()

@@ -337,7 +337,6 @@ def test_trainer_with_augmentation_and_cache_matches_jax(folder, start_weights, 
 
 
 @pytest.mark.parametrize("hyp, dtype, item", [
-    ({"device_aug": True}, torch.float32, "A7"),
     ({"per_replica_bn": True}, torch.float32, "A8"),
     ({"remat": True}, torch.float32, "A1"),
     ({"s2d_stem": True}, torch.float32, "A1"),

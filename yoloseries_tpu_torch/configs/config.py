@@ -58,11 +58,13 @@ class TrainConfig:
     seed: int = 7
     num_workers: int = 8
     do_ema: bool = True
-    # knobs of the JAX package that the port does not have yet; the Trainer
-    # raises when one is set (remat: ROADMAP A1; device_aug, device_cache:
-    # A7)
+    # not ported yet: the Trainer raises when it is set (ROADMAP A1)
     remat: bool = False
+    # render mosaic, mixup, warp, cutout and HSV on the card
+    # (data/device_aug.py): the host's workers only plan each sample
     device_aug: bool = False
+    # with device_aug, the resized train set lives on the card, and a batch
+    # brings only plan scalars and labels (~N*h*w*3 bytes of device memory)
     device_cache: bool = False
     # memmap cache of min-scale-resized train images, served as full canvases
     cache_images: bool = False

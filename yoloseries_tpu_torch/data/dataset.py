@@ -20,8 +20,9 @@ original sizes, so that a warm start decodes no image. Cached items are
 served as the full (h, w) canvas, content top-left and zeros beyond
 (``cached_canvas``, on by default with the cache): that is what the
 reference's cached loader trains on, and the JAX package matched the
-reference's converged mAP only once it served canvases. The device-aug
-planner's ``pull_meta`` is not ported (ROADMAP A7).
+reference's converged mAP only once it served canvases. ``pull_meta``
+gives the device-aug planner (``data/device_aug.py``) the shape, boxes and
+classes of an item without reading its pixels.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ class DetectionDataset:
         self.cls2name = load_names(names_path) if names_path is not None else {}
         self._num_class = None
         self._ann_cache: dict = {}
+        self._meta_cache: dict = {}
 
         self._cache = None  # (N, h, w, 3) uint8 memmap
         self._cache_shapes = None  # (N, 2) cached (rh, rw)
@@ -175,6 +177,32 @@ class DetectionDataset:
             rh, rw = self._cache_shapes[idx]
             return np.asarray(self._cache[idx, :rh, :rw]), boxes, classes
         return self.load_img(idx), boxes, classes
+
+    def pull_meta(self, idx: int):
+        """((h, w), boxes (N, 4) xyxy, classes (N,)) of the image that
+        ``pull_item`` would serve (the canvas, the crop, or the file's size
+        from its header), without reading pixel bytes. Memoized: the arrays
+        are shared, so every consumer copies before it mutates."""
+        cached = self._meta_cache.get(idx)
+        if cached is not None:
+            return cached
+        ann = self.load_annotations(idx)
+        boxes, classes = ann[:, 1:5].copy(), ann[:, 0].copy()
+        if self._cache is not None:
+            h, w = self.input_size
+            H, W = self._orig_shapes[idx]
+            boxes = boxes * min(h / H, w / W)
+            hw = (int(h), int(w)) if self.cached_canvas else tuple(int(s) for s in
+                                                                  self._cache_shapes[idx])
+        else:
+            from PIL import Image
+
+            with Image.open(self.img_files[idx]) as im:
+                w0, h0 = im.size
+            hw = (int(h0), int(w0))
+        out = (hw, boxes, classes)
+        self._meta_cache[idx] = out
+        return out
 
     def _mosaic(self, idx: int, rng: np.random.Generator):
         indices = [idx] + [int(rng.integers(0, len(self))) for _ in range(3)]

@@ -3,21 +3,24 @@
 
 * ``__init__``: datasets and loaders (the train set augmented, and cached
   when ``cache_images``; the val set neither; worker processes by the
-  loader's default), the model, the optimizer groups, the family's loss and
+  loader's default; with ``device_cache`` the image cache uploaded to the
+  card once), the model, the optimizer groups, the family's loss and
   decode, the train state, the evaluator;
 * ``train()``: epochs of updates through ``make_train_step`` (accumulated
   micro-batches, one optimizer and one EMA update each), the batches copied
-  to the card from pinned memory; the metrics stay on the device until a
-  log point reads them all at once. Augmentation closes at the first epoch
-  of the last ``no_aug_epochs``, with a checkpoint there;
+  to the card from pinned memory (with ``device_aug``, plans that
+  ``data/device_aug.py::render_batch`` renders there); the metrics stay on
+  the device until a log point reads them all at once. Augmentation closes
+  at the first epoch of the last ``no_aug_epochs``, with a checkpoint
+  there;
 * ``evaluate()``: mAP over the val set on the EMA weights, at the protocol
   config (conf .001, iou .65, K=4096: the NMS runs in B1, ``nms_greedy``);
 * ``save()`` / ``load()``: checkpoints of the whole train state.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; raises without
-a card. Not ported yet, and raising when asked for: ``device_aug`` (ROADMAP
-A7), ``per_replica_bn`` (A8), ``remat`` and ``s2d_stem`` (A1), bf16 compute
-(A2). TensorBoard, the profiler window and the model summary wait for A10.
+a card. Not ported yet, and raising when asked for: ``per_replica_bn``
+(ROADMAP A8), ``remat`` and ``s2d_stem`` (A1), bf16 compute (A2).
+TensorBoard, the profiler window and the model summary wait for A10.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.dataset import DetectionDataset
+from ..data.device_aug import render_batch, render_method, render_staged
 from ..data.loader import DataLoader
 from ..device import resolve_device
 from ..evaluation.yolov5 import Evaluator
@@ -52,8 +56,6 @@ __all__ = ["Trainer"]
 def _check_ported(cfg: "TrainConfig", compute_dtype) -> None:
     """Raise for a setting that needs a module not ported yet."""
     hyp = cfg.hyp
-    if cfg.device_aug or cfg.device_cache:
-        raise NotImplementedError("device_aug / device_cache are not ported yet (ROADMAP A7)")
     if hyp.get("per_replica_bn", False):
         raise NotImplementedError("per_replica_bn (data parallelism) is not ported yet "
                                   "(ROADMAP A8)")
@@ -94,7 +96,14 @@ class Trainer:
                                                 input_size=cfg.input_size, aug=cfg.aug)
         self.train_loader = DataLoader(
             self.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
-            max_labels=cfg.max_labels, seed=cfg.seed, workers=cfg.num_workers)
+            max_labels=cfg.max_labels, seed=cfg.seed, workers=cfg.num_workers,
+            device_aug=cfg.device_aug, device_cache=cfg.device_cache)
+        # device_cache: the resized train set lives on the card, and a batch
+        # brings only plan scalars and labels
+        self._dev_cache = None
+        if self.train_loader.device_cache:
+            self._dev_cache = torch.from_numpy(
+                np.ascontiguousarray(self.train_dataset._cache)).to(self.device)
         self.steps_per_epoch = max(
             len(self.train_dataset) // (cfg.batch_size * cfg.accumulate), 1)
         cfg.optim = type(cfg.optim)(
@@ -173,17 +182,40 @@ class Trainer:
             self.log(f"resumed from step {step} (epoch {self.start_epoch})")
 
     # --------------------------------------------------------------- train
+    def _to_device(self, arrays: dict) -> dict:
+        """numpy arrays to the card in one asynchronous copy: packed into
+        one pinned buffer, copied ``non_blocking``, then viewed apart."""
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
+        spans, size = {}, 0
+        for k, a in arrays.items():
+            spans[k] = (size, a)
+            size += -(-a.nbytes // 16) * 16  # every view 16-byte aligned
+        host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        flat = host.numpy()
+        for off, a in spans.values():
+            flat[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        card = host.to(self.device, non_blocking=True)
+        return {k: card[off:off + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+                .reshape(a.shape) for k, (off, a) in spans.items()}
+
     def _device_batch(self, batch):
-        """uint8 images and f32 targets to the card: pinned host memory,
-        then an asynchronous copy."""
-        out = {}
+        """A batch on the card: uint8 images and f32 targets, or a plan
+        batch's fields, rendered there into the images."""
         with record_function("train.h2d"):
-            for k in ("img", "ann"):
-                t = torch.from_numpy(batch[k])
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
-        return out
+            if "plan" not in batch:
+                return self._to_device({"img": batch["img"], "ann": batch["ann"]})
+            arrays = {**batch["plan"], "ann": batch["ann"]}
+            if "tiles" in batch:
+                arrays["tiles"] = batch["tiles"]
+            out = self._to_device(arrays)
+        aug = self.train_dataset.aug
+        with record_function("train.render"):
+            img = render_batch(out.pop("tiles", None), out, out_hw=batch["dst_hw"],
+                               tile_hw=self.train_dataset.input_size, fill=aug.fill_value,
+                               lb_fill=aug.fill_value, method=render_method(aug),
+                               cache=self._dev_cache, staged=render_staged(aug))
+        return {"img": img, "ann": out["ann"]}
 
     def _flush_metrics(self):
         """Read every queued metric of the device in one transfer and feed
