@@ -86,11 +86,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``repack_tiles`` alone; the host syncs of one update from a plan batch
    (copy, render, step: must be 0) and its profiler split, the render's
    share included;
+11. the YOLOv5 knobs (the launch counters zeroed before each path and read
+   after it; every NMS call on these paths held against its plain twin):
+   all nine specs at 640, nc=80 (seeded, detect convs widened as in phase
+   4), raw maps card vs CPU at B=1 and protocol img/s at B=64 (B1), the
+   first call's time apart; yolov5s folded (``nn/deploy.py``) against
+   unfused in turns (serving B=256 and B=8, protocol B=64; raw maps,
+   detections matched, a profiler split of serving B=256 each); the s2d
+   stem with ``fold_stem_to_s2d`` weights against the 6x6 stem; bf16
+   serving B=256 against f32 (share of f32 detections matched); soft-NMS
+   (linear, exp) at serving B=8 and protocol B=64, card against CPU on the
+   same candidates, and its ms; WBF at serving TTA B=2, card against CPU,
+   split into the branches on the card and the fusion on the host; the
+   ``Trainer`` (phase 8's set and batch) with ``remat``, ``s2d_stem`` and
+   bf16 beside f32 and a second f32 run (the control), 3 updates each: ms
+   per update, peak memory, host syncs (must be 0), remat's first update
+   and its losses against f32's (``TRAIN_TOL``), its parameters after all
+   updates against the control's drift, and its peak (must be lower);
+   ``cli/detect.py`` on phase 9's checkpoint folded (the default),
+   ``--no-fuse`` and ``--bf16``, with the checkpoint's bf16 map error in
+   ulps and the share of f32 detections whose object bf16 finds;
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (cuDNN and
-matmul), so every comparison and time is full f32.
+matmul), so every comparison and time is full f32 but phase 11's bf16.
 """
 
 from __future__ import annotations
@@ -100,8 +120,10 @@ import faulthandler
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -404,21 +426,30 @@ def check_detections(out, b):
         fail("detections: conf outside [0, 1] or no detection at all")
 
 
-def matched_share(got, ref):
+def matched_share(got, ref, conf_tol=1e-4, box_tol=1e-2):
     """Share of the reference detections found in ``got`` (same image and
-    class, conf within 1e-4, box within 1e-2 px)."""
+    class, conf within ``conf_tol``, box within ``box_tol`` px), and their
+    count. Either side: a (B, K, 6) array or tensor, or per-image (n, 6)
+    arrays, lists or None (the WBF and ``detect`` outputs)."""
     found = total = 0
-    for g, r in zip(got, ref):
+    for g, r in zip(to_rows(got), to_rows(ref)):
         g, r = g[g[:, 4] > 0], r[r[:, 4] > 0]
         free = np.ones(len(g), bool)
         for row in r:
             total += 1
-            close = (free & (g[:, 5] == row[5]) & (np.abs(g[:, 4] - row[4]) <= 1e-4)
-                     & (np.abs(g[:, :4] - row[:4]).max(axis=1) <= 1e-2))
+            close = (free & (g[:, 5] == row[5]) & (np.abs(g[:, 4] - row[4]) <= conf_tol)
+                     & (np.abs(g[:, :4] - row[:4]).max(axis=1) <= box_tol))
             if close.any():
                 found += 1
                 free[np.argmax(close)] = False
     return found / max(total, 1), total
+
+
+def to_rows(dets):
+    if torch.is_tensor(dets):
+        dets = dets.detach().cpu().numpy()
+    return [np.zeros((0, 6), np.float32) if d is None else np.asarray(d, np.float32).reshape(-1, 6)
+            for d in dets]
 
 
 def phase_serving(model, card):
@@ -1364,11 +1395,13 @@ def greedy_mismatches(calls):
     return bad, kept, live
 
 
-def phase_recipe(card):
+def phase_recipe(card, keep_dir):
     """The preset's recipe on the port: augmented, cached training through
     the close, the augmented loader alone, then ``cli/val.py`` and
-    ``cli/detect.py`` on the checkpoint the run wrote."""
+    ``cli/detect.py`` on the checkpoint the run wrote; the checkpoint and
+    ``detect``'s images are copied to ``keep_dir`` for phase 11."""
     import os
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -1518,6 +1551,8 @@ def phase_recipe(card):
             f"candidates: {bad} mismatches [{card}]")
         if len(found) != 6 or sum(detect_launches.values()) == 0 or bad:
             fail("cli/detect.py --ckpt-dir: images missing, no kernel launched or a mismatch")
+        shutil.copytree(ckpt_dir, keep_dir / "ckpt")
+        shutil.copytree(few, keep_dir / "few")  # the images, not the links
     wall = time.perf_counter() - t_phase
     log(f"recipe phase: {wall:.1f} s [{card}]")
     return {"loss_first": trainer.history[0]["tot_loss"],
@@ -1839,6 +1874,694 @@ def phase_device_aug(card, recipe):
 
 
 
+# ------------------------------------------- the YOLOv5 knobs (A1, A2)
+
+SPECS = ("s", "m", "l", "x", "s_plain", "s_dw", "m_dw", "l_dw", "x_dw")
+SERVING = dict(conf_threshold=0.25, cls_threshold=0.25, iou_threshold=0.45, num_candidates=512)
+PROTOCOL = dict(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
+                num_candidates=4096)
+FOLD_TOL = 1e-3  # folded vs unfused raw maps: the BN's multiply moved into the kernel
+FOLD_MATCH = S2D_MATCH = SOFT_MATCH = 0.99  # shares of detections / keepers matched
+WBF_MATCH = 0.98
+BF16_MATCH = 0.90
+BF16_CONF_TOL, BF16_BOX_TOL = 0.02, 4.0  # bf16 vs f32 detections: conf, box px
+# cli/detect.py --bf16 on phase 9's checkpoint, whose maps reach ~100: the
+# f32 model with its kernels rounded to bf16 already errs by 16-34 bf16 ulps
+# of each map's largest value, the folded bf16 model by 1.4-2.2x that, and
+# --bf16 finds the object of 35-37% of the f32 detections
+BF16_KERNEL_RATIO = 3.0  # folded bf16 map error / the bf16-rounded kernels' error, per stage
+BF16_OBJECTS = 0.30  # share of f32 detections whose object (class, IoU >= 0.5) --bf16 finds
+# remat's drift from f32 after all updates, against the drift of a second f32
+# run of the same code (the control): at most this multiple of it
+REMAT_DRIFT = 10.0
+# folded vs unfused boxes on phase 9's trained checkpoint: its raw maps reach
+# |v| ~ 100, where the fold's re-rounded weights move them by up to ~4e-3
+# and a box corner by up to ~0.06 px at equal conf
+DETECT_BOX_TOL = 0.1
+SOFT_SCORE_TOL = 1e-5
+SOFT_CPU_ROWS = 8  # soft-NMS card vs CPU on the first images of a batch
+KNOB_UPDATES = 3  # per training knob: 1 untimed, then 2 timed
+KNOB_HW = 640  # phase 11's input size; its batches:
+KNOB_B = {"serving": 256, "small": 8, "protocol": 64, "tta": 2}
+
+
+def knob_images(seed, b):
+    return np.random.default_rng(seed).integers(0, 256, (b, KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
+
+
+def counters():
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    return {"nms_greedy": g.nms_greedy, "matrix_nms": m.matrix_nms,
+            "matrix_nms_chunked": m.matrix_nms_chunked}
+
+
+def zero_counters():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counters():
+    return {k: c.launches for k, c in counters().items()}
+
+
+def twin_mismatches(rec):
+    """Every recorded NMS call (``record_nms_inputs``) against its kernel's
+    plain twin, index for index: (mismatched slots, calls). The launches
+    made here are taken off the counters again."""
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    twins = {"nms_greedy": g.greedy_nms, "matrix_nms": m.matrix_nms_plain,
+             "matrix_nms_chunked": m.matrix_nms_chunked_plain}
+    saved = read_counters()
+    bad = calls = 0
+    for name, recorded in rec.items():
+        for boxes, scores, thr in recorded:
+            got = counters()[name](boxes, scores, thr, MAX_KEEP)
+            want = twins[name](boxes, scores, thr, MAX_KEEP)
+            torch.cuda.synchronize()
+            bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+            calls += 1
+    for k, c in counters().items():
+        c.launches = saved[k]
+    return bad, calls
+
+
+def add_launches(total, path):
+    for k, n in path.items():
+        total[k] = total.get(k, 0) + n
+
+
+def timed_calls(fn, n=3):
+    """(first call's ms, best of ``n`` more, the last call's output), host
+    clock around synchronized calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return first, best, out
+
+
+def seeded_yolov5(name, calib):
+    """``name`` at nc=80 from seed 0 on the card, its detect convs widened on
+    ``calib`` as phase 4 does."""
+    from yoloseries_tpu_torch.models import create_model
+
+    model = create_model(name, num_class=80, device="cpu", seed=0).cuda()
+    widen_head(model, calib)
+    return model
+
+
+def cpu_twin(model):
+    import copy
+
+    return copy.deepcopy(model).cpu()
+
+
+def evaluator(model, cfg, device="cuda"):
+    from yoloseries_tpu_torch.evaluation import Evaluator, yolov5_decode_fn, yolov5_select_fn
+
+    return Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=device)
+
+
+def EvalConfig(**kw):  # noqa: N802 (the port's EvalConfig, imported where it is called)
+    from yoloseries_tpu_torch.evaluation import EvalConfig as config
+
+    return config(**kw)
+
+
+SPLIT_GROUPS = (  # (group, substrings of the device event name), first match wins
+    ("NMS kernels", ("nms_kernel", "nms_relation_kernel", "nms_fixpoint_kernel")),
+    ("H2D copy", ("Memcpy HtoD",)),
+    ("convolution", ("conv", "fprop", "xmma", "implicit_gemm", "cudnn", "gemm")),
+    ("BN affine and residual adds (mul, add)", ("MulFunctor", "AddFunctor", "CUDAFunctor_add")),
+    ("SiLU", ("silu",)),
+    ("sort / top-k", ("sort", "Sort", "radix", "topk")),
+    ("other elementwise", ("elementwise", "reduce_kernel", "Reduce")),
+)
+
+
+def device_split(fn):
+    """One call of ``fn`` under torch.profiler: (wall ms, busy ms, share by
+    group); (wall ms, None, {}) when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    busy = sum(t for t, _ in events) / 1e3
+    if busy == 0:
+        return wall, None, {}
+    groups = {g: 0.0 for g, _ in SPLIT_GROUPS} | {"other": 0.0}
+    for t, name in events:
+        groups[next((g for g, keys in SPLIT_GROUPS if any(k in name for k in keys)),
+                    "other")] += t / 1e3
+    return wall, busy, {g: t / busy for g, t in groups.items()}
+
+
+def knob_specs(card, calib, tol):
+    """Every spec at 640: raw maps card vs CPU at B=1, protocol img/s at
+    B=64 (B1), the first call apart. Returns the launches and yolov5s."""
+    launches, keep = {}, None
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255
+    img = knob_images(11, KNOB_B["protocol"])
+    for size in SPECS:
+        name = f"yolov5{size}"
+        model = seeded_yolov5(name, calib)
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.no_grad():
+            ref = cpu_twin(model)(x)
+            got = model(x.cuda())
+        err = max(float((g_.cpu() - r).abs().max()) for g_, r in zip(got, ref))
+        ev = evaluator(model, EvalConfig(**PROTOCOL))
+        with record_nms_inputs() as rec:
+            ev(img[:2])  # the candidates of two images, for the twins
+        bad, calls = twin_mismatches(rec)
+        torch.cuda.synchronize()
+        zero_counters()
+        first, best, _ = timed_calls(lambda: ev(img), n=2)
+        path = read_counters()
+        add_launches(launches, path)
+        log(f"  {name}: {n_params} params; raw maps card vs CPU at B=1 max abs diff {err:.3e} "
+            f"(tolerance {tol}); protocol B=64 {len(img) / best * 1e3:.1f} img/s ({best:.1f} "
+            f"ms, best of 2), first call {first:.1f} ms; launches {path}; {calls} NMS calls "
+            f"against the twins: {bad} mismatches [{card}]")
+        if not err <= tol:
+            fail(f"{name}: card and CPU raw maps disagree")
+        if path["nms_greedy"] == 0 or bad:
+            fail(f"{name}: protocol B=64 did not launch nms_greedy, or a twin mismatch")
+        if size == "s":
+            keep = model
+        else:
+            del model, ev
+            torch.cuda.empty_cache()
+    return launches, keep
+
+
+def knob_fold(model, card):
+    """yolov5s folded against unfused in one run: throughput, raw maps,
+    detections, a profiler split of serving B=256."""
+    import copy
+
+    from yoloseries_tpu_torch.nn.deploy import fold_conv_bn
+
+    launches = {}
+    folded = fold_conv_bn(copy.deepcopy(model).eval())
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255).cuda()
+    with torch.no_grad():
+        err = max(float((a - b).abs().max()) for a, b in zip(model(x), folded(x)))
+    rng = np.random.default_rng(12)
+    out = {"raw_err": err}
+    for label, kw, b in (("serving B=256", SERVING, KNOB_B["serving"]),
+                         ("serving B=8", SERVING, KNOB_B["small"]),
+                         ("protocol B=64", PROTOCOL, KNOB_B["protocol"])):
+        img = rng.integers(0, 256, (b, KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
+        evs = {"unfused": evaluator(model, EvalConfig(**kw)),
+               "folded": evaluator(folded, EvalConfig(**kw))}
+        res = {}
+        for which in ("unfused", "folded", "folded", "unfused"):  # in turns
+            with record_nms_inputs() as rec:
+                zero_counters()
+                _, best, dets = timed_calls(lambda: evs[which](img), n=1)
+                if which == "folded":
+                    add_launches(launches, read_counters())
+            bad, calls = twin_mismatches(rec)
+            if bad:
+                fail(f"fold {label}: an NMS call disagrees with its twin")
+            res[which] = (min(best, res.get(which, (float("inf"),))[0]), dets)
+        share, total = matched_share(res["folded"][1], res["unfused"][1])
+        out[label] = {k: b / v[0] * 1e3 for k, v in res.items()} | {"matched": share}
+        log(f"  fold, {label}: unfused {b / res['unfused'][0] * 1e3:.1f} img/s "
+            f"({res['unfused'][0]:.1f} ms), folded {b / res['folded'][0] * 1e3:.1f} img/s "
+            f"({res['folded'][0]:.1f} ms); {share * 100:.2f}% of {total} detections matched "
+            f"(conf 1e-4, box 1e-2 px; need >= {FOLD_MATCH * 100:.0f}%) [{card}]")
+        if share < FOLD_MATCH:
+            fail(f"fold {label}: folded detections disagree with the unfused ones")
+    log(f"  fold: raw maps folded vs unfused at B=1 max abs diff {err:.3e} (tolerance {FOLD_TOL})")
+    if not err <= FOLD_TOL:
+        fail("fold: folded raw maps disagree with the unfused ones")
+    img = rng.integers(0, 256, (KNOB_B["serving"], KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
+    for which, m_ in (("unfused", model), ("folded", folded)):
+        ev = evaluator(m_, EvalConfig(**SERVING))
+        wall, busy, split = device_split(lambda: ev(img))
+        out[f"split_{which}"] = {"wall_ms": wall, "busy_ms": busy, **split}
+        if busy is None:
+            log(f"  {which} serving B=256: the profiler recorded no device time (not measured)")
+            continue
+        log(f"  {which} serving B=256, profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+            f"idle share {(1 - busy / wall) * 100:.1f}%; "
+            + ", ".join(f"{g} {s * 100:.2f}%" for g, s in split.items()) + f" [{card}]")
+    return launches, folded, out
+
+
+def knob_s2d(model, card, tol):
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.nn.deploy import fold_stem_to_s2d
+
+    s2d = create_model("yolov5s", num_class=80, device="cpu", s2d_stem=True)
+    s2d.load_state_dict(fold_stem_to_s2d({k: v.cpu() for k, v in model.state_dict().items()}))
+    s2d = s2d.cuda().eval()
+    gen = torch.Generator().manual_seed(13)
+    x = (torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255).cuda()
+    with torch.no_grad():
+        err = max(float((a - b).abs().max()) for a, b in zip(model(x), s2d(x)))
+    img = knob_images(13, KNOB_B["serving"])
+    evs = {"6x6": evaluator(model, EvalConfig(**SERVING)),
+           "s2d": evaluator(s2d, EvalConfig(**SERVING))}
+    res, launches = {}, {}
+    for which in ("6x6", "s2d", "s2d", "6x6"):
+        with record_nms_inputs() as rec:
+            zero_counters()
+            _, best, dets = timed_calls(lambda: evs[which](img), n=1)
+            if which == "s2d":
+                add_launches(launches, read_counters())
+        if twin_mismatches(rec)[0]:
+            fail("s2d: an NMS call disagrees with its twin")
+        res[which] = (min(best, res.get(which, (float("inf"),))[0]), dets)
+    share, total = matched_share(res["s2d"][1], res["6x6"][1])
+    b = len(img)
+    log(f"  s2d stem (fold_stem_to_s2d weights): raw maps vs the 6x6 stem at B=1 max abs diff "
+        f"{err:.3e} (tolerance {tol}); serving B=256 6x6 {b / res['6x6'][0] * 1e3:.1f} img/s, "
+        f"s2d {b / res['s2d'][0] * 1e3:.1f} img/s; {share * 100:.2f}% of {total} detections "
+        f"matched [{card}]")
+    if not err <= tol or share < S2D_MATCH:
+        fail("s2d: the s2d stem's maps or detections disagree with the 6x6 stem's")
+    return launches, {"raw_err": err, "img_per_s_6x6": b / res["6x6"][0] * 1e3,
+                      "img_per_s_s2d": b / res["s2d"][0] * 1e3, "matched": share}
+
+
+def knob_bf16(model, card):
+    from yoloseries_tpu_torch.models import create_model
+
+    bf = create_model("yolov5s", num_class=80, device="cpu", dtype=torch.bfloat16)
+    bf.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    bf = bf.cuda().eval()
+    img = knob_images(14, KNOB_B["serving"])
+    evs = {"f32": evaluator(model, EvalConfig(**SERVING)),
+           "bf16": evaluator(bf, EvalConfig(**SERVING))}
+    res, launches, calls = {}, {}, 0
+    for which in ("f32", "bf16", "bf16", "f32"):
+        with record_nms_inputs() as rec:
+            zero_counters()
+            _, best, dets = timed_calls(lambda: evs[which](img), n=1)
+            if which == "bf16":
+                add_launches(launches, read_counters())
+        bad, n = twin_mismatches(rec)
+        calls += n if which == "bf16" else 0
+        if bad:
+            fail(f"bf16 serving: an NMS call ({which}) disagrees with its twin")
+        res[which] = (min(best, res.get(which, (float("inf"),))[0]), dets)
+    share, total = matched_share(res["bf16"][1], res["f32"][1], BF16_CONF_TOL, BF16_BOX_TOL)
+    b = len(img)
+    log(f"  bf16 serving B=256: {b / res['bf16'][0] * 1e3:.1f} img/s against f32 "
+        f"{b / res['f32'][0] * 1e3:.1f}; {share * 100:.2f}% of {total} f32 detections "
+        f"matched (conf {BF16_CONF_TOL}, box {BF16_BOX_TOL} px; need >= {BF16_MATCH * 100:.0f}%)"
+        f"; B1 launches {launches.get('nms_greedy', 0)}, {calls} calls held against the twin, "
+        f"0 mismatches [{card}]")
+    if share < BF16_MATCH or launches.get("nms_greedy", 0) == 0:
+        fail("bf16 serving: too few f32 detections matched, or B1 not launched")
+    return launches, {"img_per_s_bf16": b / res["bf16"][0] * 1e3,
+                      "img_per_s_f32": b / res["f32"][0] * 1e3, "matched": share}
+
+
+def knob_soft_nms(model, card):
+    from yoloseries_tpu_torch.evaluation import yolov5_select_fn
+    from yoloseries_tpu_torch.ops.nms import CLASS_OFFSET, soft_nms
+
+    out = {}
+    rng = np.random.default_rng(15)
+    for label, kw, b in (("serving B=8", SERVING, KNOB_B["small"]),
+                         ("protocol B=64", PROTOCOL, KNOB_B["protocol"])):
+        cfg = EvalConfig(**kw)
+        img = rng.integers(0, 256, (b, KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
+        x = torch.from_numpy(img).cuda().permute(0, 3, 1, 2).float() / 255
+        with torch.no_grad():
+            boxes, scores, cls = yolov5_select_fn(cfg)(model(x))
+        boxes_off = (boxes + (cls * CLASS_OFFSET)[..., None]).contiguous()
+        rows = slice(0, SOFT_CPU_ROWS)  # images are independent: the CPU takes the first
+        for mode in ("linear", "exp"):
+            args = (kw["iou_threshold"], MAX_KEEP)
+            got = [t[rows].cpu() for t in soft_nms(boxes_off, scores, *args, mode=mode)]
+            want = soft_nms(boxes_off[rows].cpu(), scores[rows].cpu(), *args, mode=mode)
+            valid = want[1] | got[1]
+            same = (got[0] == want[0]) & valid
+            share = float(same.sum()) / max(int(valid.sum()), 1)
+            score_err = float((got[2] - want[2]).abs()[same].max()) if same.any() else 0.0
+            ms = cuda_ms(lambda: soft_nms(boxes_off, scores, *args, mode=mode), iters=3,
+                         warmup=1)
+            ev = evaluator(model, EvalConfig(**kw, nms_mode=f"soft_{mode}"))
+            _, batch_ms, dets = timed_calls(lambda: ev(img), n=1)
+            check_detections(dets, b)
+            out[f"{label} {mode}"] = {"matched": share, "score_err": score_err, "ms": ms,
+                                      "batch_ms": batch_ms}
+            log(f"  soft-NMS {mode}, {label} (K={scores.shape[1]}): card vs CPU on images "
+                f"0-{min(b, SOFT_CPU_ROWS) - 1}, {share * 100:.2f}% of {int(valid.sum())} keeper "
+                f"slots equal, scores of the "
+                f"equal slots within {score_err:.2e} (need >= {SOFT_MATCH * 100:.0f}% and "
+                f"{SOFT_SCORE_TOL}); {ms:.2f} ms per call (CUDA events, {MAX_KEEP} steps), "
+                f"the Evaluator's batch {batch_ms:.1f} ms [{card}]")
+            if share < SOFT_MATCH or score_err > SOFT_SCORE_TOL:
+                fail(f"soft-NMS {mode} {label}: card and CPU keepers disagree")
+    return out
+
+
+def knob_wbf(model, card):
+    from yoloseries_tpu_torch.ops.wbf import weighted_boxes_fusion
+
+    cfg = EvalConfig(**SERVING, use_tta=True, use_wbf=True)
+    ev = evaluator(model, cfg)
+    img = knob_images(16, KNOB_B["tta"])
+    ev.detect_wbf(img)  # warm-up
+    zero_counters()
+    with record_nms_inputs() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ev.detect_wbf(img)
+        total = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    bad, calls = twin_mismatches(rec)
+    ref = evaluator(cpu_twin(model), cfg, device="cpu").detect_wbf(img)
+    share, n = matched_share(got, ref)
+    # the split: the branches on the card (one copy to the host), then the
+    # fusion on the host, as detect_wbf does them
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        branches = torch.stack([ev._nms(b_) for b_ in
+                                ev._branch_outputs(ev._prepare(img), tta=True)]).cpu().numpy()
+        t1 = time.perf_counter()
+        for i in range(branches.shape[1]):
+            weighted_boxes_fusion([br[i][br[i][:, 4] > 0] for br in branches],
+                                  iou_thr=cfg.wbf_iou_threshold)
+        t2 = time.perf_counter()
+    log(f"  WBF, serving TTA B=2: card vs CPU {share * 100:.2f}% of {n} fused detections "
+        f"matched (need >= {WBF_MATCH * 100:.0f}%); {total:.1f} ms per batch: the branches on "
+        f"the card and their copy {(t1 - t0) * 1e3:.1f} ms, the fusion on the host "
+        f"{(t2 - t1) * 1e3:.1f} ms; launches {launches}, {calls} NMS calls against the twins: "
+        f"{bad} mismatches [{card}]")
+    if share < WBF_MATCH or bad or sum(launches.values()) == 0:
+        fail("WBF: card and CPU disagree, a twin mismatch, or no NMS kernel launched")
+    return launches, {"matched": share, "ms": total, "branches_ms": (t1 - t0) * 1e3,
+                      "fusion_ms": (t2 - t1) * 1e3}
+
+
+def knob_updates(trainer, host_batch):
+    """``KNOB_UPDATES`` updates of ``trainer``'s step on one batch already on
+    the card: ms per update (CUDA events over the last ones), peak memory,
+    the losses, and the model's ``state_dict`` after the first update."""
+    step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
+    batch = trainer._device_batch(host_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    trainer.state, metrics = step(trainer.state, batch)
+    losses.append(metrics["tot_loss"])
+    first = {k: v.detach().clone() for k, v in trainer.state.model.state_dict().items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(KNOB_UPDATES - 1):
+        trainer.state, metrics = step(trainer.state, batch)
+        losses.append(metrics["tot_loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (KNOB_UPDATES - 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return ms, peak, [float(v) for v in losses], first
+
+
+def knob_training(card, tmp):
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.train import Trainer
+
+    train_dirs = synthetic_folder(tmp / "train", TRAIN_BATCH * TRAIN_ACCUMULATE, seed=0)
+    hyp = train_hyp(1)
+    host = None  # phase 8's batch: the first Trainer's loader makes it
+    out, states, firsts = {}, {}, {}
+    for label, extra, dtype in (("f32", {}, torch.float32), ("f32 control", {}, torch.float32),
+                                ("remat", {"remat": True}, None),
+                                ("s2d_stem", {"s2d_stem": True}, None),
+                                ("bf16", {}, torch.bfloat16)):
+        cfg = TrainConfig.from_hyp({**hyp, **extra}, num_class=80, model="yolov5s",
+                                   output_dir=str(tmp / f"run_{label.replace(' ', '_')}"))
+        trainer = Trainer(cfg, train_dirs[:2], names_path=train_dirs[2],
+                          compute_dtype=dtype or torch.float32, log_fn=lambda *a: None,
+                          device="cuda")
+        if host is None:
+            host = next(trainer.train_loader)
+        trainer.train_loader.stop()
+        try:
+            torch.cuda.empty_cache()
+            ms, peak, losses, firsts[label] = knob_updates(trainer, host)
+            syncs = step_syncs(trainer, host)
+        finally:
+            trainer.close()
+        states[label] = trainer.state.model.state_dict()
+        out[label] = {"ms": ms, "peak_gib": peak, "losses": losses, "syncs": len(syncs)}
+        log(f"  training {label}: {ms:.1f} ms per update (B={TRAIN_BATCH} x {TRAIN_ACCUMULATE} "
+            f"at {cfg.input_size[0]}, CUDA events over updates 2-{KNOB_UPDATES}), peak "
+            f"{peak:.2f} GiB, losses {', '.join(f'{v:.6f}' for v in losses)}, {len(syncs)} "
+            f"host syncs in one update [{card}]")
+        if syncs or not all(np.isfinite(losses)):
+            fail(f"training {label}: host syncs {syncs[:3]} or a non-finite loss")
+        del trainer
+    # remat against no remat, the same batches from the same weights: the
+    # parameters and BN buffers after one update and the losses of all
+    # updates within TRAIN_TOL; after all updates, remat's drift from f32
+    # against the control's, a second f32 run of the same code
+    def worst(a, b):
+        return max(float(((b[k].double() - v.double()).abs()
+                          / v.double().abs().clamp_min(1.0)).max()) for k, v in a.items())
+
+    one, last = worst(firsts["f32"], firsts["remat"]), worst(states["f32"], states["remat"])
+    ctl_one = worst(firsts["f32"], firsts["f32 control"])
+    ctl_last = worst(states["f32"], states["f32 control"])
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(out["remat"]["losses"],
+                                                       out["f32"]["losses"]))
+    log(f"  remat vs no remat: losses within {loss_rel:.2e} relative; parameters and BN buffers "
+        f"after one update within {one:.2e} x max(1, |p|) (tolerance {TRAIN_TOL}), after all "
+        f"{KNOB_UPDATES + 1} {last:.2e}; the f32 control against f32: {ctl_one:.2e} after one, "
+        f"{ctl_last:.2e} after all (remat's may be {REMAT_DRIFT:g}x); peak "
+        f"{out['remat']['peak_gib']:.2f} against {out['f32']['peak_gib']:.2f} GiB [{card}]")
+    if not (one <= TRAIN_TOL and loss_rel <= TRAIN_TOL):
+        fail("remat changes the update")
+    if not last <= max(TRAIN_TOL, REMAT_DRIFT * ctl_last):
+        fail("remat drifts from f32 further than a second f32 run does")
+    if not out["remat"]["peak_gib"] < out["f32"]["peak_gib"]:
+        fail("remat does not lower the peak memory")
+    out["remat_vs_plain"] = {"one_update": one, "all_updates": last, "loss_rel": loss_rel,
+                             "control_one_update": ctl_one, "control_all_updates": ctl_last}
+    return out
+
+
+def knob_detect(card, recipe_dir):
+    from yoloseries_tpu_torch.cli.detect import main as detect_main
+
+    runs, launches, total_calls = {}, {}, 0
+    for label, flags in (("folded", []), ("no-fuse", ["--no-fuse"]), ("bf16", ["--bf16"])):
+        zero_counters()
+        with record_nms_inputs() as rec:
+            t0 = time.perf_counter()
+            found = detect_main(["--ckpt-dir", str(recipe_dir / "ckpt"), "--img-dir",
+                                 str(recipe_dir / "few"), "--num-class", "80", "--save-dir",
+                                 str(recipe_dir / f"detect_{label}"), "--device", "cuda",
+                                 *flags])
+            wall = time.perf_counter() - t0
+        path = read_counters()
+        add_launches(launches, path)
+        bad, calls = twin_mismatches(rec)
+        total_calls += calls
+        runs[label] = found
+        log(f"  cli/detect.py {' '.join(flags) or '(default: folded)'} on phase 9's checkpoint: "
+            f"{sum(len(v) for v in found.values())} boxes on {len(found)} images in {wall:.1f} s; "
+            f"launches {path}; {calls} NMS calls against the twins: {bad} mismatches [{card}]")
+        if bad or sum(path.values()) == 0:
+            fail(f"cli/detect.py {label}: a twin mismatch or no NMS kernel launched")
+    names = sorted(runs["no-fuse"])
+    share, n = matched_share([runs["folded"][k] for k in names],
+                             [runs["no-fuse"][k] for k in names], 1e-4, DETECT_BOX_TOL)
+    tight, _ = matched_share([runs["folded"][k] for k in names],
+                             [runs["no-fuse"][k] for k in names])
+    raw_max, raw_err = checkpoint_fold_error(recipe_dir / "ckpt")
+    bf_got, bf_ref = [runs["bf16"][k] for k in names], [runs["no-fuse"][k] for k in names]
+    bf_share, _ = matched_share(bf_got, bf_ref, BF16_CONF_TOL, BF16_BOX_TOL)
+    # why --bf16 matches few: the checkpoint's bf16 map error in ulps of
+    # each map's largest value beside the error of bf16-rounded kernels
+    # alone, the f32 detections' confs, and whether bf16 finds the same
+    # objects (same class, IoU >= 0.5) with a conf moved past the tolerance
+    ulps = checkpoint_bf16_ulps(recipe_dir / "ckpt")
+    objects, dconf = object_share(bf_got, bf_ref)
+    conf = np.concatenate([r[:, 4] for r in to_rows(bf_ref)])
+    confs = np.percentile(conf, [0, 50, 100]) if conf.size else np.zeros(3)
+    log(f"  cli/detect.py: folded vs --no-fuse {share * 100:.2f}% of {n} detections matched "
+        f"(conf 1e-4, box {DETECT_BOX_TOL} px; need >= {FOLD_MATCH * 100:.0f}%), {tight * 100:.2f}% "
+        f"at phase 5's 1e-2 px; the checkpoint's raw maps reach {raw_max:.1f} and move by "
+        f"{raw_err:.3e} under the fold; --bf16 vs --no-fuse {bf_share * 100:.2f}% (conf "
+        f"{BF16_CONF_TOL}, box {BF16_BOX_TOL} px) [{card}]")
+    log(f"  cli/detect.py --bf16: the checkpoint's maps against f32 unfused, max error per "
+        f"stage in bf16 ulps of the map's largest value ("
+        + ", ".join(f"{m:.1f}" for m in ulps["max"]) + "): "
+        + "; ".join(f"{k} " + ", ".join(f"{u:.1f}" for u in ulps[k])
+                    for k in ("kernels", "bf16", "folded"))
+        + f" (folded may be {BF16_KERNEL_RATIO:g}x kernels); the f32 detections' conf "
+        f"min/median/max {confs[0]:.4f}/{confs[1]:.4f}/{confs[2]:.4f}; {objects * 100:.2f}% of "
+        f"them have a bf16 detection of their class "
+        f"at IoU >= 0.5 (need >= {BF16_OBJECTS * 100:.0f}%), their |conf change| median "
+        f"{np.median(dconf) if dconf else 0:.4f}, 90th percentile "
+        f"{np.percentile(dconf, 90) if dconf else 0:.4f}, max {max(dconf, default=0):.4f} "
+        f"[{card}]")
+    if share < FOLD_MATCH:
+        fail("cli/detect.py: folded detections disagree with --no-fuse")
+    if objects < BF16_OBJECTS:
+        fail("cli/detect.py --bf16: too few of the f32 detections' objects found")
+    if any(f > BF16_KERNEL_RATIO * k for f, k in zip(ulps["folded"], ulps["kernels"])):
+        fail("cli/detect.py --bf16: the bf16 maps err far beyond the bf16 kernels' own rounding")
+    return launches, {"matched_fold": share, "matched_fold_1e-2": tight,
+                      "matched_bf16": bf_share, "detections": n, "raw_max": raw_max,
+                      "raw_fold_err": raw_err, "bf16_ulps": ulps, "bf16_objects": objects,
+                      "bf16_dconf_median": float(np.median(dconf)) if dconf else 0.0}
+
+
+def object_share(got, ref, iou_min=0.5):
+    """Share of the reference detections that ``got`` finds as an object: a
+    detection of the same image and class at IoU >= ``iou_min`` (one for
+    one, the best overlap first), and the |conf change| of each pair."""
+    from yoloseries_tpu_torch.ops.metrics import pairwise_iou_np
+
+    found = total = 0
+    dconf = []
+    for g, r in zip(to_rows(got), to_rows(ref)):
+        g, r = g[g[:, 4] > 0], r[r[:, 4] > 0]
+        total += len(r)
+        if not len(g) or not len(r):
+            continue
+        iou = pairwise_iou_np(r[:, :4].astype(np.float64), g[:, :4].astype(np.float64))
+        iou[r[:, 5][:, None] != g[:, 5][None, :]] = 0.0
+        free = np.ones(len(g), bool)
+        for i in np.argsort(-iou.max(axis=1), kind="stable"):
+            j = int(np.argmax(np.where(free, iou[i], -1.0)))
+            if free[j] and iou[i, j] >= iou_min:
+                found += 1
+                free[j] = False
+                dconf.append(float(abs(g[j, 4] - r[i, 4])))
+    return found / max(total, 1), dconf
+
+
+def checkpoint_bf16_ulps(ckpt_dir):
+    """Per stage, the max |error| against a checkpoint's unfused f32 raw maps
+    in bf16 ulps of the f32 map's largest value, of: the f32 model with its
+    conv kernels rounded to bf16 ("kernels"), the bf16 model ("bf16") and
+    the folded bf16 model, which ``cli/detect.py --bf16`` runs ("folded");
+    and that largest value. Two seeded images."""
+    import copy
+
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.nn.deploy import fold_conv_bn
+    from yoloseries_tpu_torch.train import restore_weights
+
+    model = create_model("yolov5s", num_class=80, device="cpu")
+    restore_weights(model, ckpt_dir)
+    model = model.cuda().eval()
+    rounded = copy.deepcopy(model)
+    with torch.no_grad():
+        for m in rounded.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(m.weight.bfloat16().float())
+    bf = create_model("yolov5s", num_class=80, device="cpu", dtype=torch.bfloat16)
+    bf.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    bf = bf.cuda().eval()
+    variants = {"kernels": rounded, "bf16": bf, "folded": fold_conv_bn(copy.deepcopy(bf))}
+    gen = torch.Generator().manual_seed(17)
+    x = torch.rand(2, 3, KNOB_HW, KNOB_HW, generator=gen).cuda()
+    with torch.no_grad():
+        ref = model(x)
+        tops = [float(a.abs().max()) for a in ref]
+        ulps = [2.0 ** (np.floor(np.log2(t)) - 7) for t in tops]
+        out = {name: [float((b.float() - a).abs().max()) / u
+                      for a, b, u in zip(ref, m(x), ulps)] for name, m in variants.items()}
+    out["max"] = tops
+    return out
+
+
+def checkpoint_fold_error(ckpt_dir):
+    """max |raw map| of a checkpoint's EMA weights on two seeded images, and
+    how far the fold moves the maps."""
+    import copy
+
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.nn.deploy import fold_conv_bn
+    from yoloseries_tpu_torch.train import restore_weights
+
+    model = create_model("yolov5s", num_class=80, device="cpu")
+    restore_weights(model, ckpt_dir)
+    model = model.cuda().eval()
+    folded = fold_conv_bn(copy.deepcopy(model))
+    gen = torch.Generator().manual_seed(17)
+    x = torch.rand(2, 3, KNOB_HW, KNOB_HW, generator=gen).cuda()
+    with torch.no_grad():
+        pairs = list(zip(model(x), folded(x)))
+    return (max(float(a.abs().max()) for a, _ in pairs),
+            max(float((a - b).abs().max()) for a, b in pairs))
+
+
+def phase_knobs(card, recipe_dir):
+    """Phase 11: every YOLOv5 spec, the fold, the s2d stem, bf16, soft-NMS,
+    WBF, the training knobs and ``cli/detect.py``'s flags."""
+    import tempfile
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    launches, out, seconds = {}, {}, {}
+    gen = torch.Generator().manual_seed(0)
+    calib = (torch.randint(0, 256, (2, 3, KNOB_HW // 2, KNOB_HW // 2), generator=gen).float()
+             / 255).cuda()
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    path, model = part("specs", knob_specs, card, calib, MODEL_TOL)
+    add_launches(launches, path)
+    path, _, out["fold"] = part("fold", knob_fold, model, card)
+    add_launches(launches, path)
+    path, out["s2d"] = part("s2d", knob_s2d, model, card, MODEL_TOL)
+    add_launches(launches, path)
+    path, out["bf16"] = part("bf16", knob_bf16, model, card)
+    add_launches(launches, path)
+    out["soft_nms"] = part("soft-NMS", knob_soft_nms, model, card)
+    path, out["wbf"] = part("WBF", knob_wbf, model, card)
+    add_launches(launches, path)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["training"] = part("training", knob_training, card, Path(tmp))
+    torch.cuda.empty_cache()
+    path, out["detect"] = part("detect", knob_detect, card, recipe_dir)
+    add_launches(launches, path)
+    wall = time.perf_counter() - t_phase
+    log(f"knobs phase: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); launches {launches} [{card}]")
+    out.update(launches=launches, seconds=seconds, phase_s=wall)
+    return out
+
+
 def b1_row(captured, launches, where, card):
     """B1 at one later path's candidates (``captured``: boxes, scores,
     thr of one call): times beside the plain twin, the bound and the chain,
@@ -1906,7 +2629,8 @@ def main():
         "collate_ms_per_sample", "step_alone_ms", "step_syncs", "h2d_call_ms",
         "h2d_landed_ms", "profile", "phase_s")}
     log("== 9. the recipe")
-    recipe = phase_recipe(card)
+    keep = tempfile.TemporaryDirectory()  # phase 9's checkpoint, for phase 11
+    recipe = phase_recipe(card, Path(keep.name))
     b1["recipe_val"] = b1_row(recipe.pop("val_captured"), recipe["val_launches"]["nms_greedy"],
                               "recipe val", card)
     b1["launches"] += recipe["val_launches"]["nms_greedy"]
@@ -1918,6 +2642,12 @@ def main():
     for row in rows:
         row["launches"] += aug["launches"][row["name"]]
     b1["device_aug"] = aug
+    log("== 11. the YOLOv5 knobs: every spec, fold, s2d, bf16, soft-NMS, WBF, training, detect")
+    knobs = phase_knobs(card, Path(keep.name))
+    keep.cleanup()
+    for row in rows:
+        row["launches"] += knobs["launches"].get(row["name"], 0)
+    b1["knobs"] = knobs
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,6 +1,7 @@
 """Port kernels on the card: each CUDA kernel against its plain twin, index
-for index, the serving path through the kernels, and the augmentation
-render on the card against the CPU's, byte for byte.
+for index, the serving path through the kernels, the augmentation render on
+the card against the CPU's, byte for byte, and the YOLOv5 knobs (the conv+BN
+fold, the s2d stem, soft-NMS) on the card against the CPU.
 
 Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
 card is visible (decided at run time, never at import). On a machine with a
@@ -315,3 +316,76 @@ def test_trainer_with_device_aug_on_card(cuda, tmp_path):
         assert np.isfinite(trainer.history[0]["tot_loss"])
     finally:
         trainer.close()
+
+
+# ------------------------------------------- the YOLOv5 knobs on the card
+
+def _knob_model(**kw):
+    """yolov5s at nc=80, seed 1, BN stats not the identity, detect convs
+    without bias (scores spread over the thresholds)."""
+    from yoloseries_tpu_torch.models import create_model
+
+    model = create_model("yolov5s", num_class=80, device="cpu", seed=1, **kw)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=gen)
+        for name in ("detect_small", "detect_mid", "detect_large"):
+            getattr(model.detect, name).bias.zero_()
+    return model
+
+
+def test_fold_on_card_matches_cpu(cuda):
+    """``fold_conv_bn`` on the card: the folded model's raw maps against the
+    unfused model's on the card (1e-3) and against the folded model on the
+    CPU (1e-3, f32 with TF32 off)."""
+    import copy
+
+    from yoloseries_tpu_torch.nn.deploy import fold_conv_bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _knob_model()
+    folded = fold_conv_bn(copy.deepcopy(model))
+    x = torch.rand(2, 3, 128, 128, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        cpu = folded(x)
+        card_folded = folded.to(cuda)(x.to(cuda))
+        card_unfused = model.to(cuda)(x.to(cuda))
+    for c, f, u in zip(cpu, card_folded, card_unfused):
+        assert float((f.cpu() - c).abs().max()) <= 1e-3
+        assert float((f - u).abs().max()) <= 1e-3
+
+
+def test_s2d_stem_on_card_matches_6x6(cuda):
+    """The s2d model with ``fold_stem_to_s2d`` weights against the 6x6-stem
+    model, both on the card: raw maps within 1e-3 (TF32 off)."""
+    from yoloseries_tpu_torch.nn.deploy import fold_stem_to_s2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _knob_model()
+    s2d = _knob_model(s2d_stem=True)
+    s2d.load_state_dict(fold_stem_to_s2d(model.state_dict()))
+    x = torch.rand(2, 3, 128, 128, generator=torch.Generator().manual_seed(3)).to(cuda)
+    with torch.no_grad():
+        for a, b in zip(model.to(cuda)(x), s2d.to(cuda)(x)):
+            assert float((a - b).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["linear", "exp"])
+def test_soft_nms_on_card_matches_cpu(cuda, mode):
+    """``soft_nms`` on the card against the CPU on the same candidates: at
+    least 99% of the keeper slots equal, their scores within 1e-5 (the
+    decayed scores compound ``exp`` and divisions that may round apart)."""
+    from yoloseries_tpu_torch.ops.nms import soft_nms
+
+    boxes, scores = candidates(9, 8, 512)
+    got = soft_nms(boxes.to(cuda), scores.to(cuda), 0.45, 300, mode=mode)
+    want = soft_nms(boxes, scores, 0.45, 300, mode=mode)
+    valid = want[1] | got[1].cpu()
+    same = (got[0].cpu() == want[0]) & valid
+    assert int(same.sum()) >= 0.99 * int(valid.sum()) > 0
+    assert float((got[2].cpu() - want[2]).abs()[same].max()) <= 1e-5

@@ -385,11 +385,25 @@ def test_nms_candidates_merge_write_matches_jax(merge_gate_max):
 
 
 def test_soft_nms_modes_raise():
+    """Both soft-NMS modes run (the test's name dates from when they raised)
+    and match the JAX ``nms_candidates`` slot for slot: keepers equal, the
+    decayed scores within 1e-6 (``exp`` may round in another last bit). A
+    mode that neither package knows raises in both."""
     boxes, scores, cls = _candidates_for_serving(5, 2, 300)
     args = [torch.from_numpy(a) for a in (boxes, scores, cls)]
     for mode in ("soft_linear", "soft_exp"):
-        with pytest.raises(NotImplementedError):
-            port_nms.nms_candidates(*args, 0.5, nms_mode=mode)
+        got = port_nms.nms_candidates(*args, 0.5, nms_mode=mode).numpy()
+        ref = np.asarray(jax_nms_candidates(
+            jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cls), iou_threshold=0.5,
+            use_pallas=False, nms_mode=mode))
+        assert (got[..., 4] > 0).any()
+        np.testing.assert_array_equal(got[..., [0, 1, 2, 3, 5]], ref[..., [0, 1, 2, 3, 5]])
+        np.testing.assert_allclose(got[..., 4], ref[..., 4], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError):
+        port_nms.nms_candidates(*args, 0.5, nms_mode="soft_gauss")
+    with pytest.raises(ValueError):
+        jax_nms_candidates(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cls),
+                           iou_threshold=0.5, use_pallas=False, nms_mode="soft_gauss")
 
 
 @pytest.mark.parametrize("k", [16, 500])

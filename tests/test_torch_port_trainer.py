@@ -338,13 +338,12 @@ def test_trainer_with_augmentation_and_cache_matches_jax(folder, start_weights, 
 
 @pytest.mark.parametrize("hyp, dtype, item", [
     ({"per_replica_bn": True}, torch.float32, "A8"),
-    ({"remat": True}, torch.float32, "A1"),
-    ({"s2d_stem": True}, torch.float32, "A1"),
-    ({}, torch.bfloat16, "A2"),
 ])
 def test_trainer_raises_for_what_is_not_ported(folder, tmp_path, hyp, dtype, item):
     """A setting that needs a module not ported yet raises at construction,
-    naming its ROADMAP item (the card check is in the hygiene tests)."""
+    naming its ROADMAP item (the card check is in the hygiene tests);
+    ``remat``, ``s2d_stem`` and bf16 are ported
+    (``tests/test_torch_port_train_knobs.py``)."""
     from yoloseries_tpu_torch.train import Trainer
 
     img_dir, lab_dir, names = folder

@@ -121,8 +121,16 @@ def test_detect_bias_prior_matches_jax_init():
 
 
 def test_unported_specs_raise():
-    with pytest.raises(NotImplementedError):
-        create_model("yolov5s_dw", num_class=NC, device="cpu")
+    """yolov5s_dw builds (the test's name dates from when it raised), with
+    the JAX model's parameter count; an unknown name raises."""
+    from yoloseries_tpu.models.yolov5 import YOLOV5_SIZES as JAX_SIZES
+
+    jax_model = JaxYOLOv5(num_class=NC, spec=JAX_SIZES["s_dw"])
+    shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0),
+                                                   jnp.zeros((1, 64, 64, 3)), train=False))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shapes["params"]))
+    port = create_model("yolov5s_dw", num_class=NC, device="cpu")
+    assert sum(p.numel() for p in port.parameters()) == want
     with pytest.raises(KeyError):
         create_model("yolov9", num_class=NC, device="cpu")
 

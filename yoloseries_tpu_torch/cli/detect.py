@@ -10,9 +10,13 @@ package's trees in an ``.npz`` whose keys are ``params/...`` and
 ``batch_stats/...`` paths joined by ``/``. The class count comes from
 ``--name-path``, else ``--num-class``. Images are letterboxed on the host,
 run through ``Evaluator`` (fused decode + class-aware NMS on the card), and
-the detections, in original-image pixels, are written as JSON. Not ported
-yet: the conv+BN fold before inference (ROADMAP A1; it leaves detections
-unchanged) and drawing the boxes on the images (A10).
+the detections, in original-image pixels, are written as JSON.
+
+Each conv+BN pair is folded into one biased conv before inference
+(``nn/deploy.py::fold_conv_bn``; ``--no-fuse`` keeps the BN passes).
+``--s2d-stem`` builds the space-to-depth stem (a checkpoint trained with
+``s2d_stem: true``); ``--bf16`` computes in bfloat16. Not ported yet:
+drawing the boxes on the images (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..evaluation import EvalConfig, Evaluator, yolov5_decode_fn, yolov5_select_fn
 from ..models import create_model
+from ..nn.deploy import fold_conv_bn
 from ..utils.weights import state_dict_from_jax, unflatten_tree
 
 __all__ = ["detect_batch", "load_weights", "main"]
@@ -69,6 +74,11 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--conf", type=float, default=0.3)
     p.add_argument("--iou", type=float, default=0.2)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--s2d-stem", action="store_true",
+                   help="the checkpoint was trained with s2d_stem: true")
+    p.add_argument("--no-fuse", dest="fuse", action="store_false",
+                   help="keep the BN passes (no conv+BN fold before inference)")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' to run on the CPU")
     return p.parse_args(argv)
 
@@ -89,7 +99,10 @@ def main(argv=None):
         num_class = args.num_class
     else:
         raise SystemExit("pass --name-path or --num-class")
-    model = create_model(args.model, num_class=num_class, device="cpu")
+    model_kw = {"dtype": torch.bfloat16} if args.bf16 else {}
+    if args.s2d_stem:
+        model_kw["s2d_stem"] = True
+    model = create_model(args.model, num_class=num_class, device="cpu", **model_kw)
     if args.ckpt_dir:
         step = restore_weights(model, args.ckpt_dir, device=device)
         if step is None:
@@ -97,6 +110,9 @@ def main(argv=None):
         print(f"loaded checkpoint at step {step}")
     else:
         load_weights(model, args.weights)
+    if args.fuse:
+        fold_conv_bn(model.eval())
+        print("fused conv+bn for deploy (BN running stats folded into conv weights and biases)")
     cfg = EvalConfig(conf_threshold=args.conf, cls_threshold=args.conf,
                      iou_threshold=args.iou, merge_boxes=True)
     evaluator = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=device)

@@ -9,7 +9,10 @@ The arguments of the JAX package's ``cli/train.py``, plus ``--device``
 (default ``cuda``: no card is an error unless ``--device cpu``). The class
 count comes from ``--name-path``, else from the train set's labels.
 Checkpoints go to ``<output-dir>/checkpoints/<step>/state.pt``; ``cli/val.py``
-and ``cli/detect.py --ckpt-dir`` read them.
+and ``cli/detect.py --ckpt-dir`` read them. ``--bf16`` computes in bfloat16
+(parameters stay f32); ``--set remat=true`` recomputes each CSP block in the
+backward; ``--set s2d_stem=true`` trains the space-to-depth stem (then pass
+the same hyp to ``val`` and ``--s2d-stem`` to ``detect``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--input-size", type=int, default=None)
     p.add_argument("--output-dir", default="runs")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported yet)")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any flattened hyp key (YAML-typed), e.g. "
                         "--set data_aug_mixup_p=0.5")

@@ -10,8 +10,10 @@ restored into a train state; its EMA weights (``--params ema``, the
 default) or its trained ones (``raw``) are scored at the protocol
 thresholds (conf .001, iou .65, K=4096 unless the ``--cfg`` hyp says
 otherwise), predictions and ground truth un-letterboxed to the original
-images. ``--save-pkl-dir`` pickles both, per image. ``--plot-dir`` needs the
-curve plots, which are not ported yet (ROADMAP A10).
+images. ``--save-pkl-dir`` pickles both, per image. A hyp with
+``s2d_stem: true`` builds the space-to-depth stem the checkpoint was trained
+with. ``--plot-dir`` needs the curve plots, which are not ported yet
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -62,15 +64,16 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     hyp = load_hyp(args.cfg) if args.cfg else {}
-    if hyp.get("s2d_stem"):
-        raise NotImplementedError("s2d_stem is not ported yet (ROADMAP A1)")
     hyp.setdefault("use_tta", args.tta)
     input_size = (args.input_size, args.input_size)
 
     dataset = DetectionDataset(args.val_img_dir, args.val_lab_dir, args.name_path,
                                input_size=input_size, enable_aug=False)
     num_class = dataset.num_class
-    model = create_model(args.model, num_class=num_class, device="cpu")
+    # s2d_stem changes the stem kernel's layout in the checkpoint: build the
+    # model with the knob the training run used
+    model_kw = {"s2d_stem": True} if hyp.get("s2d_stem") else {}
+    model = create_model(args.model, num_class=num_class, device="cpu", **model_kw)
     family = get_family(args.model)
     step = restore_weights(model, args.ckpt_dir, params=args.params, device=device)
     if step is None:

@@ -1,10 +1,13 @@
-"""YOLOv5 evaluator: decode, optional test-time augmentation, class-aware NMS,
-fixed (B, max_keep, 6) output.
+"""YOLOv5 evaluator: decode, optional test-time augmentation, class-aware NMS
+(greedy or soft), fixed (B, max_keep, 6) output; or Weighted Boxes Fusion
+over the TTA branches (``Evaluator.detect_wbf``).
 
 Counterpart of ``yoloseries_tpu/evaluation/yolov5.py``. The model's raw maps
 are NCHW (B, A*(5+nc), H, W); the decoders view them as (B, H, W, A, 5+nc)
 so the flat candidate index is ((y*W + x)*A + a) per stage, concatenated
-over stages, as in the JAX package.
+over stages, as in the JAX package. ``decode_yolov5`` decodes in its
+``dtype`` (default f32, which both packages' entry points use for a bf16
+model too); the fused selection always decodes in f32.
 """
 
 from __future__ import annotations
@@ -31,23 +34,25 @@ __all__ = [
 ]
 
 
-def _stage_rows(pred: torch.Tensor, num_anchor: int) -> torch.Tensor:
-    """(B, A*no, H, W) -> (B, H, W, A, no) float32."""
+def _stage_rows(pred: torch.Tensor, num_anchor: int, dtype=torch.float32) -> torch.Tensor:
+    """(B, A*no, H, W) -> (B, H, W, A, no) in ``dtype``."""
     b, c, h, w = pred.shape
     no = c // num_anchor
-    return pred.float().reshape(b, num_anchor, no, h, w).permute(0, 3, 4, 1, 2)
+    return pred.to(dtype).reshape(b, num_anchor, no, h, w).permute(0, 3, 4, 1, 2)
 
 
-def decode_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, strides=(8, 16, 32)):
-    """Raw NCHW maps -> (B, N, 5+nc) [cx, cy, w, h, obj, cls...] in pixels:
-    xy = (2*sigmoid - 0.5 + grid) * stride, wh = (2*sigmoid)^2 * anchor."""
+def decode_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, strides=(8, 16, 32),
+                  dtype=torch.float32):
+    """Raw NCHW maps -> (B, N, 5+nc) [cx, cy, w, h, obj, cls...] in pixels,
+    in ``dtype``: xy = (2*sigmoid - 0.5 + grid) * stride,
+    wh = (2*sigmoid)^2 * anchor."""
     anchors = torch.as_tensor(np.asarray(anchors, np.float32))
     outs = []
     for si, (pred, stride) in enumerate(zip(stage_preds, strides)):
-        p = torch.sigmoid(_stage_rows(pred, anchors.shape[1]))
+        p = torch.sigmoid(_stage_rows(pred, anchors.shape[1], dtype))
         b, h, w, a, no = p.shape
-        grid = torch.from_numpy(make_grid(h, w)).to(p.device)
-        anchor = anchors[si].to(p.device)
+        grid = torch.from_numpy(make_grid(h, w)).to(p.device, dtype)
+        anchor = anchors[si].to(p.device, dtype)
         xy = (p[..., 0:2] * 2.0 - 0.5 + grid[None, :, :, None, :]) * stride
         wh = (p[..., 2:4] * 2.0) ** 2 * anchor[None, None, None, :, :]
         out = torch.cat([xy, wh, p[..., 4:]], dim=-1)
@@ -71,7 +76,8 @@ def decode_topk_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, k=512,
       on the card (here both sort all N scores, so they differ only in the
       decode's gathers).
     Both engines give the same candidates in the same order (equal scores,
-    lower flat index first).
+    lower flat index first). The maps are decoded in f32, whatever the
+    model's compute dtype.
 
     Returns boxes (B, K, 4) xyxy pixels, scores (B, K) (0 = gated/padded),
     cls_ids (B, K) float.
@@ -191,7 +197,14 @@ class EvalConfig:
     # flip axis per TTA branch, in the JAX package's NHWC numbering:
     # None / 1 (H, up-down) / 2 (W, left-right)
     tta_flips: tuple = (None, 1, 2)
-    nms_mode: str = "greedy"  # soft-NMS modes are not ported yet
+    nms_mode: str = "greedy"  # 'greedy' | 'soft_linear' | 'soft_exp'
+    # Weighted Boxes Fusion over the TTA branches instead of NMS on the
+    # merged set (TTA implied): ``Evaluator.__call__`` returns
+    # ``detect_wbf``'s fusion with the two values below. The JAX config has
+    # the flag and its ``detect_wbf``, but nothing there reads the flag
+    use_wbf: bool = False
+    wbf_iou_threshold: float = 0.5
+    wbf_weights: tuple | None = None
     # retinanet writes the IoU-weighted merged boxes into the output rows
     merge_write_boxes: bool = False
     # the merge runs only where 1 < candidates < this (fcos: 301)
@@ -229,9 +242,9 @@ class Evaluator:
         self.cfg = cfg
         self.select_fn = select_fn
 
-    def _branches(self, img):
+    def _branches(self, img, tta: bool):
         """(image, scale, flip) per TTA branch; img is (B, 3, H, W)."""
-        if not self.cfg.use_tta:
+        if not tta:
             return [(img, 1.0, None)]
         out = []
         for s, f in zip(self.cfg.tta_scales, self.cfg.tta_flips):
@@ -251,58 +264,93 @@ class Evaluator:
             x0, x1 = img_w - x1, img_w - x0
         return torch.stack([x0, y0, x1, y1], dim=-1)
 
-    def _run_select(self, img):
-        img_h, img_w = img.shape[2], img.shape[3]
-        bs, ss, cs = [], [], []
-        for x, s, f in self._branches(img):
-            boxes, scores, cls_ids = self.select_fn(self.model(x))
-            bs.append(self._adjust_boxes(boxes, s, f, img_h, img_w))
-            ss.append(scores)
-            cs.append(cls_ids)
-        cfg = self.cfg
-        return nms_candidates(
-            torch.cat(bs, dim=1), torch.cat(ss, dim=1), torch.cat(cs, dim=1),
-            iou_threshold=cfg.iou_threshold, max_keep=cfg.max_keep,
-            class_aware=cfg.class_aware, merge_boxes=cfg.merge_boxes,
-            nms_mode=cfg.nms_mode, merge_write_boxes=cfg.merge_write_boxes,
-            merge_gate_max=cfg.merge_gate_max,
-        )
+    @staticmethod
+    def _adjust_preds(p, s, f, img_h, img_w):
+        """Undo a TTA branch's scale/flip on dense [cx, cy, w, h, ...] rows."""
+        p = p.clone()
+        p[..., 0:4] = p[..., 0:4] / s
+        if f == 1:  # flipped along H -> mirror y
+            p[..., 1] = img_h - p[..., 1]
+        if f == 2:  # flipped along W -> mirror x
+            p[..., 0] = img_w - p[..., 0]
+        return p
 
-    def _run_dense(self, img):
+    def _branch_outputs(self, img, tta: bool):
+        """Per branch: candidates (boxes, scores, cls_ids) through
+        ``select_fn``, else the dense decoded rows, mapped back to ``img``."""
         img_h, img_w = img.shape[2], img.shape[3]
-        merged = []
-        for x, s, f in self._branches(img):
-            p = self.decode_fn(self.model(x))
-            if self.cfg.use_tta:
-                p = p.clone()
-                p[..., 0:4] = p[..., 0:4] / s
-                if f == 1:  # flipped along H -> mirror y
-                    p[..., 1] = img_h - p[..., 1]
-                if f == 2:  # flipped along W -> mirror x
-                    p[..., 0] = img_w - p[..., 0]
-            merged.append(p)
+        outs = []
+        for x, s, f in self._branches(img, tta):
+            maps = self.model(x)
+            if self.select_fn is not None:
+                boxes, scores, cls_ids = self.select_fn(maps)
+                outs.append((self._adjust_boxes(boxes, s, f, img_h, img_w), scores, cls_ids))
+            else:
+                p = self.decode_fn(maps)
+                outs.append(self._adjust_preds(p, s, f, img_h, img_w) if tta else p)
+        return outs
+
+    def _nms(self, branch):
         cfg = self.cfg
-        return postprocess_detections(
-            torch.cat(merged, dim=1), conf_threshold=cfg.conf_threshold,
-            cls_threshold=cfg.cls_threshold, iou_threshold=cfg.iou_threshold,
-            num_candidates=cfg.num_candidates, max_keep=cfg.max_keep,
-            class_aware=cfg.class_aware, merge_boxes=cfg.merge_boxes,
-            nms_mode=cfg.nms_mode, merge_write_boxes=cfg.merge_write_boxes,
-            merge_gate_max=cfg.merge_gate_max,
-        )
+        kw = dict(iou_threshold=cfg.iou_threshold, max_keep=cfg.max_keep,
+                  class_aware=cfg.class_aware, merge_boxes=cfg.merge_boxes,
+                  nms_mode=cfg.nms_mode, merge_write_boxes=cfg.merge_write_boxes,
+                  merge_gate_max=cfg.merge_gate_max)
+        if self.select_fn is not None:
+            return nms_candidates(*branch, **kw)
+        return postprocess_detections(branch, conf_threshold=cfg.conf_threshold,
+                                      cls_threshold=cfg.cls_threshold,
+                                      num_candidates=cfg.num_candidates, **kw)
+
+    def _prepare(self, img) -> torch.Tensor:
+        """(B, H, W, 3) uint8 or float, numpy or tensor -> (B, 3, H, W) f32
+        in [0, 1] on the evaluator's device."""
+        img = torch.as_tensor(img).to(self.device)
+        img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
+        return img.permute(0, 3, 1, 2).contiguous()
 
     @torch.inference_mode()
     def __call__(self, img) -> torch.Tensor:
         """img: (B, H, W, 3) uint8 in [0, 255] or float in [0, 1], numpy or
         tensor. Returns (B, max_keep, 6) [x1, y1, x2, y2, conf, cls] in
         letterboxed input pixels on the evaluator's device; unused slots
-        have conf 0."""
-        img = torch.as_tensor(img).to(self.device)
-        img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
-        img = img.permute(0, 3, 1, 2).contiguous()
+        have conf 0. With ``cfg.use_wbf`` the rows are :meth:`detect_wbf`'s
+        fused detections, the first ``max_keep`` by descending conf."""
+        if self.cfg.use_wbf:
+            fused = self.detect_wbf(img)
+            rows = np.zeros((len(fused), self.cfg.max_keep, 6), np.float32)
+            for i, dets in enumerate(fused):
+                if dets is not None:
+                    dets = dets[:self.cfg.max_keep]
+                    rows[i, :len(dets)] = dets
+            return torch.from_numpy(rows).to(self.device)
+        branches = self._branch_outputs(self._prepare(img), self.cfg.use_tta)
         if self.select_fn is not None:
-            return self._run_select(img)
-        return self._run_dense(img)
+            merged = tuple(torch.cat(parts, dim=1) for parts in zip(*branches))
+        else:
+            merged = torch.cat(branches, dim=1)
+        return self._nms(merged)
+
+    @torch.inference_mode()
+    def detect_wbf(self, img) -> list:
+        """TTA + Weighted Boxes Fusion: each TTA branch is postprocessed on
+        the evaluator's device, the branches come to the host in one copy,
+        and the fusion runs per image there. Returns per-image (n, 6) arrays
+        in letterboxed input pixels, None where nothing survives."""
+        from ..ops.wbf import weighted_boxes_fusion
+
+        branches = torch.stack([self._nms(b) for b in
+                                self._branch_outputs(self._prepare(img), tta=True)])
+        branches = branches.cpu().numpy()  # (n_branches, B, max_keep, 6)
+        n_br = branches.shape[0]
+        weights = list(self.cfg.wbf_weights or [1.0] * n_br)
+        out = []
+        for i in range(branches.shape[1]):
+            per_branch = [branches[m, i][branches[m, i][:, 4] > 0] for m in range(n_br)]
+            fused = weighted_boxes_fusion(per_branch, weights=weights,
+                                          iou_thr=self.cfg.wbf_iou_threshold)
+            out.append(fused if len(fused) else None)
+        return out
 
     @staticmethod
     def to_host_detections(dets, infos=None) -> list:

@@ -1,5 +1,6 @@
-"""Model registry of the port: ``create_model`` for yolov5{s,m,l,x} and for
-names added with ``register``."""
+"""Model registry of the port: ``create_model`` for the nine YOLOv5 specs
+(yolov5{s,m,l,x}, yolov5s_plain, yolov5{s,m,l,x}_dw) and for names added
+with ``register``."""
 
 from __future__ import annotations
 
@@ -8,12 +9,11 @@ from typing import Callable
 import torch
 
 from ..device import resolve_device
-from .yolov5 import YOLOV5_SIZES, CSPTrunk, YOLOv5, YOLOv5Spec
+from .yolov5 import YOLOV5_SIZES, CSPTrunk, YOLOv5, YOLOv5Spec, space_to_depth2
 
 __all__ = ["CSPTrunk", "YOLOV5_SIZES", "YOLOv5", "YOLOv5Spec",
-           "available_models", "create_model", "register"]
+           "available_models", "create_model", "register", "space_to_depth2"]
 
-_PORTED = ("s", "m", "l", "x")
 _REGISTRY: dict[str, Callable[..., torch.nn.Module]] = {}
 
 
@@ -28,14 +28,15 @@ def register(name: str):
 
 
 def available_models() -> list[str]:
-    return [f"yolov5{s}" for s in _PORTED] + sorted(_REGISTRY)
+    return [f"yolov5{s}" for s in YOLOV5_SIZES] + sorted(_REGISTRY)
 
 
 def create_model(name: str, num_class: int, device=None, seed: int = 0,
                  **kwargs) -> torch.nn.Module:
     """Build ``name`` with weights drawn from ``torch.Generator`` seeded with
     ``seed``, in eval mode, on ``device`` (default ``cuda``; raises without
-    a card unless ``device="cpu"``)."""
+    a card unless ``device="cpu"``). ``kwargs`` go to the model: for YOLOv5
+    ``dtype``, ``remat``, ``s2d_stem``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     if name in _REGISTRY:

@@ -1,21 +1,38 @@
-"""Layer blocks of the YOLOv5 s/m/l/x graph, NCHW.
+"""Layer blocks of the YOLOv5 family, NCHW.
 
 Counterpart of ``yoloseries_tpu/nn/layers.py``. Submodule names follow the
 reference's ``state_dict`` keys (``conv``/``bn``, ``cba1..3``,
 ``blocks.N.conv_bn_act_1/2``) so a port ``state_dict`` converts to the JAX
-trees by name.
+trees by name; the depthwise pair is ``dw``/``pw`` and ``Focus`` holds its
+conv as ``conv``, as in the JAX trees.
 
-BatchNorm conventions: eps 1e-3, torch momentum 0.03 (flax 0.97), unbiased
-running variance (torch's own accumulation), and eval mode computed as
-``x * mul + shift`` with ``mul = weight * rsqrt(var + eps)``, the same
-arithmetic as the JAX ``TorchBatchNorm``.
+BatchNorm conventions: eps 1e-3 (1e-5 for ``BottleneckCSP``'s fuse BN),
+torch momentum 0.03 (flax 0.97), unbiased running variance (torch's own
+accumulation), and eval mode computed as ``x * mul + shift`` with
+``mul = weight * rsqrt(var + eps)``, the same arithmetic as the JAX
+``TorchBatchNorm``.
 
-The depthwise and plain-BottleneckCSP blocks (``DWConvBnAct``, ``Focus``,
-``SPP``, ``BottleneckCSP``) are not ported yet (ROADMAP queue A).
+Compute dtype: parameters and BN statistics stay f32 and the activations
+keep the dtype they arrive in (the model casts its input once). A conv casts
+its kernel to the input's dtype. BN takes its batch statistics in f32
+(one-pass variance) and returns its affine in f32; the block applies its
+activation and rounds once to the compute dtype: the JAX package's
+``dtype=bfloat16`` arithmetic as one XLA fusion computes it when it may keep
+excess precision. XLA on the CPU, and JAX run op by op, round after every op
+instead (the affine's multiply and add, each op of SiLU); on the card that
+rounding matches fewer of the f32 model's detections
+(``scripts/torch_bf16_rounding.py``; ROADMAP section C).
+
+Rematerialization: a block run under ``torch.utils.checkpoint`` with
+``context_fn=remat_context`` runs its forward again in the backward; BN
+then normalizes by the same batch statistics but leaves the running ones
+alone, so they move once per forward, as under ``flax.linen.remat``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -24,15 +41,39 @@ from torch import nn
 
 __all__ = [
     "BatchNorm",
+    "Conv2d",
     "ConvBnAct",
+    "DWConvBnAct",
     "BasicBottleneck",
+    "BottleneckCSP",
     "C3BottleneckCSP",
+    "Focus",
+    "SPP",
     "FastSPP",
     "DetectHead",
     "detect_bias_init",
+    "remat_context",
     "upsample2x",
     "max_pool_same",
 ]
+
+# set while torch.utils.checkpoint recomputes a block in the backward
+_RECOMPUTING = contextvars.ContextVar("yst_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def remat_context():
+    """``context_fn`` of ``torch.utils.checkpoint``: nothing around the
+    first forward, the recompute flagged so BN leaves its running stats."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 def autopad(kernel: int, padding: int | None) -> int:
@@ -65,31 +106,79 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__(channels, eps=eps, momentum=0.03)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x)
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * mul
+    def _affine(self, x, mean, var):
+        """``x * mul + shift`` with f32 ``mul``/``shift``: f32 out for any x."""
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * mul
         return x * mul[None, :, None, None] + shift[None, :, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._affine(x, self.running_mean, self.running_var)
+        recompute = _RECOMPUTING.get()
+        if x.dtype == torch.float32:
+            if not recompute:
+                return super().forward(x)
+            # the same kernel on copies of the running stats: the recompute
+            # sees the first forward's output and the stats stay put
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
+        # low-precision compute: batch statistics in f32 (one-pass variance,
+        # as the JAX TorchBatchNorm), the affine in f32
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        if not recompute:
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+                self.num_batches_tracked.add_(1)
+        return self._affine(x, mean, var)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose kernel (and bias) is cast to the input's dtype:
+    f32 parameters, bf16 convolutions under a bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class ConvBnAct(nn.Module):
-    """Conv (no bias) + BatchNorm(eps 1e-3) + SiLU."""
+    """Conv (no bias) + BatchNorm(eps 1e-3) + SiLU; ``groups`` as in
+    ``nn.Conv2d`` (``groups=in_channels``: depthwise)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
                  stride: int = 1, padding: int | None = None, act: bool = True,
-                 generator: torch.Generator | None = None):
+                 groups: int = 1, generator: torch.Generator | None = None):
         super().__init__()
         pad = autopad(kernel, padding)
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel, stride, pad,
-                              bias=False)
+        self.conv = Conv2d(in_channels, out_channels, kernel, stride, pad,
+                           groups=groups, bias=False)
         kaiming_fan_out_(self.conv.weight, generator)
         self.bn = BatchNorm(out_channels)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+        y = self.conv(x)
+        x = self.bn(y)
+        return (F.silu(x) if self.act else x).to(y.dtype)
+
+
+class DWConvBnAct(nn.Module):
+    """Depthwise ``ConvBnAct`` (``dw``) then a pointwise one (``pw``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 stride: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        self.dw = ConvBnAct(in_channels, in_channels, kernel, stride, groups=in_channels,
+                            generator=generator)
+        self.pw = ConvBnAct(in_channels, out_channels, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pw(self.dw(x))
 
 
 class BasicBottleneck(nn.Module):
@@ -132,6 +221,68 @@ class C3BottleneckCSP(nn.Module):
         return self.cba3(torch.cat([y1, y2], dim=1))
 
 
+class BottleneckCSP(nn.Module):
+    """Plain CSP block: a raw 1x1 side conv, ``cba1`` and the bottlenecks
+    then a raw 1x1 ``mid_conv``, BN (eps 1e-5) over the concat, LeakyReLU
+    0.1, then ``cba2``. JAX names ``cv_side``/``cv_mid``/``cv1``/``cv2``."""
+
+    def __init__(self, in_channels: int, out_channels: int, shortcut: bool = True,
+                 num_blocks: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        mid = out_channels // 2
+        self.side_conv = Conv2d(in_channels, mid, 1, bias=False)
+        kaiming_fan_out_(self.side_conv.weight, generator)
+        self.cba1 = ConvBnAct(in_channels, mid, 1, padding=0, generator=generator)
+        self.blocks = nn.ModuleList(
+            BasicBottleneck(mid, mid, shortcut, expand_ratio=1.0, generator=generator)
+            for _ in range(num_blocks)
+        )
+        self.mid_conv = Conv2d(mid, mid, 1, bias=False)
+        kaiming_fan_out_(self.mid_conv.weight, generator)
+        self.bn = BatchNorm(2 * mid, eps=1e-5)
+        self.cba2 = ConvBnAct(2 * mid, out_channels, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y2 = self.side_conv(x)
+        y1 = self.cba1(x)
+        for block in self.blocks:
+            y1 = block(y1)
+        y = torch.cat([self.mid_conv(y1), y2], dim=1)
+        return self.cba2(F.leaky_relu(self.bn(y), 0.1).to(y.dtype))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem: the four pixel phases concatenated in the order
+    (0, 0), (1, 0), (0, 1), (1, 1) as (row, column) offsets, then ``conv``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
+                 stride: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = ConvBnAct(4 * in_channels, out_channels, kernel, stride,
+                              generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
+                       x[:, :, 1::2, 1::2]], dim=1)
+        return self.conv(x)
+
+
+class SPP(nn.Module):
+    """Parallel 5/9/13 max-pool pyramid."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernels=(5, 9, 13),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        mid = in_channels // 2
+        self.cba1 = ConvBnAct(in_channels, mid, 1, padding=0, generator=generator)
+        self.cba2 = ConvBnAct((len(kernels) + 1) * mid, out_channels, 1, generator=generator)
+        self.kernels = tuple(kernels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cba1(x)
+        return self.cba2(torch.cat([x] + [max_pool_same(x, k) for k in self.kernels], dim=1))
+
+
 class FastSPP(nn.Module):
     """Chained 5x5 max-pool SPP."""
 
@@ -171,7 +322,7 @@ class DetectHead(nn.Module):
         super().__init__()
         out = num_anchor * (5 + num_class)
         for name, ch, s in zip(self.NAMES, in_channels, strides):
-            conv = nn.Conv2d(ch, out, 1)
+            conv = Conv2d(ch, out, 1)
             kaiming_fan_out_(conv.weight, generator)
             with torch.no_grad():
                 conv.bias.copy_(detect_bias_init(s, num_class, num_anchor))

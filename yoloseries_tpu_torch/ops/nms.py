@@ -2,10 +2,11 @@
 
 Counterpart of ``yoloseries_tpu/ops/nms.py``. Confidence gating and top-K
 candidate selection give static (B, K) candidates; greedy NMS (one of the
-CUDA kernels of ``kernels/`` on a CUDA tensor) picks keepers; the
-supporter-count merge drops keepers with fewer than two supporters; the
-output is (B, max_keep, 6) [x1, y1, x2, y2, conf, cls] with conf 0 in
-unused slots.
+CUDA kernels of ``kernels/`` on a CUDA tensor) or soft-NMS (``soft_nms``,
+plain PyTorch on either device, as the JAX package runs it in a
+``lax.scan`` outside any Pallas kernel) picks keepers; the supporter-count
+merge drops keepers with fewer than two supporters; the output is
+(B, max_keep, 6) [x1, y1, x2, y2, conf, cls] with conf 0 in unused slots.
 
 Ties: ``jax.lax.top_k`` puts equal scores lowest index first, and most
 candidate slots are exact-zero ties; ``torch.topk`` promises no order, so
@@ -27,6 +28,7 @@ __all__ = [
     "select_topk_candidates",
     "postprocess_detections",
     "nms_candidates",
+    "soft_nms",
 ]
 
 # Class-aware NMS trick: shift each class's boxes into a disjoint coordinate
@@ -101,23 +103,67 @@ def _greedy_keep(boxes_off, score_k, iou_threshold, max_keep):
     return nms_greedy(boxes_off, score_k, iou_threshold, max_keep)
 
 
+def _iou_one_vs_all(ref, ref_area, boxes, areas):
+    """IoU of one box per image (B, 4) against (B, K, 4), in the JAX
+    package's ``_iou_one_vs_all`` order of operations."""
+    lt = torch.maximum(ref[:, None, 0:2], boxes[..., 0:2])
+    rb = torch.minimum(ref[:, None, 2:4], boxes[..., 2:4])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (ref_area[:, None] + areas - inter).clamp_min(1e-9)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             max_keep: int, mode: str = "linear", sigma: float = 0.5,
+             score_threshold: float = 0.001):
+    """Soft-NMS over (B, K, 4) boxes and (B, K) scores, every image at once,
+    ``max_keep`` steps: take the leftmost best live score; if it is above
+    ``score_threshold`` keep it, zero it, and decay the live scores of the
+    boxes whose IoU with it exceeds ``iou_threshold`` by ``1 - iou``
+    (``mode="linear"``) or ``exp(-iou^2 / sigma)`` (``"exp"``). Returns
+    (keep_idx int32, -1 where not valid; keep_valid; keep_scores, the score
+    at selection time)."""
+    if mode not in ("linear", "exp"):
+        raise ValueError(f"soft-NMS mode {mode!r}: 'linear' or 'exp'")
+    boxes = boxes.float()
+    live = scores.float().clone()
+    rows = torch.arange(live.shape[0], device=live.device)
+    areas = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+    keep_idx, keep_valid, keep_scores = [], [], []
+    for _ in range(max_keep):
+        idx = live.argmax(dim=1)  # first maximal value: lowest index on ties
+        best = live[rows, idx]
+        valid = best > score_threshold
+        ious = _iou_one_vs_all(boxes[rows, idx], areas[rows, idx], boxes, areas)
+        if mode == "linear":
+            decay = torch.where(ious > iou_threshold, 1.0 - ious, 1.0)
+        else:
+            decay = torch.where(ious > iou_threshold, torch.exp(-(ious * ious) / sigma), 1.0)
+        live = live * torch.where(valid[:, None], decay, 1.0)
+        live[rows, idx] = torch.where(valid, 0.0, live[rows, idx])
+        keep_idx.append(torch.where(valid, idx.to(torch.int32), -1))
+        keep_valid.append(valid)
+        keep_scores.append(best)
+    return (torch.stack(keep_idx, dim=1), torch.stack(keep_valid, dim=1),
+            torch.stack(keep_scores, dim=1))
+
+
 def nms_candidates(boxes_k, score_k, cls_k, iou_threshold, max_keep=300,
                    class_aware=True, merge_boxes=True, nms_mode="greedy",
                    merge_write_boxes=False, merge_gate_max=3000):
     """NMS + supporter-count merge over pre-selected candidates.
 
     boxes_k (B, K, 4) xyxy, score_k (B, K) (0 = dead slot, sorted or not),
-    cls_k (B, K) float class ids. The NMS runs in the CUDA kernels on a
-    CUDA tensor and in their plain twins on a CPU tensor. The merge drops
+    cls_k (B, K) float class ids. Greedy NMS runs in the CUDA kernels on a
+    CUDA tensor and in their plain twins on a CPU tensor; ``nms_mode``
+    "soft_linear" / "soft_exp" runs ``soft_nms``, whose decayed scores
+    become the output confidences. The merge drops
     keepers with fewer than 2 supporters and, with ``merge_write_boxes``
     (the retinanet evaluator), writes the IoU-weighted merged box into the
     output rows; it runs only where 1 < live candidates < ``merge_gate_max``
     (3000; fcos passes 301). Returns (B, max_keep, 6); unused slots have
     conf 0."""
-    if nms_mode in ("soft_linear", "soft_exp"):
-        raise NotImplementedError(
-            "soft-NMS is not ported yet (ROADMAP queue A, 'Serving leftovers')")
-    if nms_mode != "greedy":
+    if nms_mode not in ("greedy", "soft_linear", "soft_exp"):
         raise ValueError(f"unknown nms_mode {nms_mode}")
     boxes_k = boxes_k.float()
     score_k = score_k.float()
@@ -126,10 +172,17 @@ def nms_candidates(boxes_k, score_k, cls_k, iou_threshold, max_keep=300,
     offset = cls_k * CLASS_OFFSET if class_aware else torch.zeros_like(cls_k)
     boxes_off = boxes_k + offset[..., None]
 
-    keep_idx, keep_valid = _greedy_keep(boxes_off, score_k, iou_threshold, max_keep)
-    safe_idx = keep_idx.clamp_min(0).long()  # (B, max_keep)
+    if nms_mode == "greedy":
+        keep_idx, keep_valid = _greedy_keep(boxes_off, score_k, iou_threshold, max_keep)
+        safe_idx = keep_idx.clamp_min(0).long()  # (B, max_keep)
+        keep_scores = torch.take_along_dim(score_k, safe_idx, dim=1)
+    else:
+        mode = "linear" if nms_mode == "soft_linear" else "exp"
+        keep_idx, keep_valid, keep_scores = soft_nms(boxes_off, score_k, iou_threshold,
+                                                     max_keep, mode=mode)
+        safe_idx = keep_idx.clamp_min(0).long()
     out_boxes = torch.take_along_dim(boxes_k, safe_idx[..., None], dim=1)
-    out_scores = torch.where(keep_valid, torch.take_along_dim(score_k, safe_idx, dim=1), 0.0)
+    out_scores = torch.where(keep_valid, keep_scores, 0.0)
     out_cls = torch.take_along_dim(cls_k, safe_idx, dim=1)
 
     if merge_boxes:

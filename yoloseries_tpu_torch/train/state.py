@@ -69,7 +69,7 @@ def resize_batch(img: torch.Tensor, ann: torch.Tensor, resize_to, base_hw):
 
 
 def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True,
-                    resize_to=None, base_hw=None) -> Callable:
+                    resize_to=None, base_hw=None, compute_dtype=torch.float32) -> Callable:
     """Build the train step ``(state, batch) -> (state, metrics)``.
 
     ``loss`` is a family loss ``loss_fn(preds, targets, balances) ->
@@ -78,6 +78,9 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
     (k*B, M, 6)} on the model's device, k = ``accumulate``. ``resize_to`` /
     ``base_hw``: multi-scale training, the batch resized on the device (see
     ``resize_batch``); the loss must be built at ``resize_to``.
+    ``compute_dtype``: the image is cast to it before the /255 (and before a
+    resize), as in the JAX package; build the model with the same ``dtype``.
+    Activation rematerialization is a model knob (``remat=True``), as there.
 
     ``metrics`` holds the mean over micro-batches of the loss dict and
     ``grad_norm``, the global norm of the averaged gradient before clipping,
@@ -96,7 +99,7 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
         model.train()
         img, ann = batch["img"], batch["ann"]
         if resize_to is not None and tuple(img.shape[1:3]) != tuple(resize_to):
-            img, ann = resize_batch(img.float(), ann, resize_to, base_hw)
+            img, ann = resize_batch(img.to(compute_dtype), ann, resize_to, base_hw)
         micro_b = img.shape[0] // k
         for p in model.parameters():
             p.grad = None
@@ -105,7 +108,7 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
         for i in range(k):
             sl = slice(i * micro_b, (i + 1) * micro_b)
             with record_function("train.forward"):
-                x = img[sl].float() / 255.0
+                x = img[sl].to(compute_dtype) / 255.0
                 preds = model(x.permute(0, 3, 1, 2).contiguous())
             with record_function("train.loss"):
                 loss_dict, balances = family_loss(preds, ann[sl], balances)

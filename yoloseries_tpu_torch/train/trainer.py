@@ -18,9 +18,11 @@
 * ``save()`` / ``load()``: checkpoints of the whole train state.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; raises without
-a card. Not ported yet, and raising when asked for: ``per_replica_bn``
-(ROADMAP A8), ``remat`` and ``s2d_stem`` (A1), bf16 compute (A2).
-TensorBoard, the profiler window and the model summary wait for A10.
+a card. The model knobs of the JAX ``Trainer``: ``compute_dtype`` (bf16
+compute, f32 parameters, BN statistics, optimizer, EMA and loss sums),
+``cfg.remat`` and the hyp's ``s2d_stem``. Not ported yet, and raising when
+asked for: ``per_replica_bn`` (ROADMAP A8). TensorBoard, the profiler
+window and the model summary wait for A10.
 """
 
 from __future__ import annotations
@@ -53,16 +55,11 @@ if TYPE_CHECKING:
 __all__ = ["Trainer"]
 
 
-def _check_ported(cfg: "TrainConfig", compute_dtype) -> None:
+def _check_ported(cfg: "TrainConfig") -> None:
     """Raise for a setting that needs a module not ported yet."""
-    hyp = cfg.hyp
-    if hyp.get("per_replica_bn", False):
+    if cfg.hyp.get("per_replica_bn", False):
         raise NotImplementedError("per_replica_bn (data parallelism) is not ported yet "
                                   "(ROADMAP A8)")
-    if cfg.remat or hyp.get("s2d_stem", False):
-        raise NotImplementedError("remat / s2d_stem are not ported yet (ROADMAP A1)")
-    if compute_dtype != torch.float32:
-        raise NotImplementedError("bf16 compute is not ported yet (ROADMAP A2)")
 
 
 class Trainer:
@@ -70,7 +67,7 @@ class Trainer:
                  names_path=None, model_name: str | None = None,
                  compute_dtype=torch.float32, log_fn=print, device=None):
         self.device = resolve_device(device)
-        _check_ported(cfg, compute_dtype)
+        _check_ported(cfg)
         self.cfg = cfg
         # per-rank log file: {output_dir}/log/log_rank_0/train.log
         self._log_file = None
@@ -110,15 +107,24 @@ class Trainer:
             **{**cfg.optim.__dict__, "steps_per_epoch": self.steps_per_epoch})
 
         resolved_name = model_name or cfg.model
+        model_kw = {}  # only the knobs asked for: a registered model may take none
+        if compute_dtype != torch.float32:
+            model_kw["dtype"] = compute_dtype
+        if cfg.remat:
+            model_kw["remat"] = True
+        if cfg.hyp.get("s2d_stem", False):
+            model_kw["s2d_stem"] = True
         self.model = create_model(resolved_name, num_class=self.num_class, device="cpu",
-                                  seed=cfg.seed)
+                                  seed=cfg.seed, **model_kw)
+        self._compute_dtype = compute_dtype
         self.family = get_family(resolved_name, default=cfg.hyp.get("family"))
         loss_fn, balances0 = self.family.make_loss(cfg.hyp, self.num_class, cfg.input_size)
         decode_fn = self.family.make_decode(cfg.hyp, self.num_class, cfg.input_size)
         self.state = create_train_state(self.model, cfg.optim, balances=balances0,
                                         device=self.device)
         self._step_fns = {tuple(cfg.input_size): make_train_step(
-            loss_fn, accumulate=cfg.accumulate, do_ema=cfg.do_ema)}
+            loss_fn, accumulate=cfg.accumulate, do_ema=cfg.do_ema,
+            compute_dtype=compute_dtype)}
 
         # multi-scale training: a fresh /32 size in [0.5x, 1.5x] of the base
         # each update; "interpolate" resizes the base-size batch on the card
@@ -168,7 +174,7 @@ class Trainer:
             loss_fn, _ = self.family.make_loss(self.cfg.hyp, self.num_class, size)
             self._step_fns[size] = make_train_step(
                 loss_fn, accumulate=self.cfg.accumulate, do_ema=self.cfg.do_ema,
-                resize_to=resize_to, base_hw=base)
+                resize_to=resize_to, base_hw=base, compute_dtype=self._compute_dtype)
         return self._step_fns[size]
 
     # ------------------------------------------------------------------ io

@@ -6,6 +6,14 @@ OIHW, and BatchNorm's scale/bias/mean/var become
 weight/bias/running_mean/running_var. Inputs are nested dicts of numpy
 arrays (for example from ``jax.device_get`` or an ``.npz``); no JAX is
 needed.
+
+Every YOLOv5 spec maps: the depthwise pair (``dw``/``pw``), the ``Focus``
+stem (``stem/conv/...``), SPP's ``cv1``/``cv2`` and ``BottleneckCSP``'s raw
+``cv_side``/``cv_mid`` convs and block-level ``bn``. The way back, JAX's
+``convert_yolov5_state_dict``, passes unknown inner names through and so
+reads the depthwise, Focus and SPP names of a port ``state_dict``; it cannot
+read ``BottleneckCSP``'s raw convs or its block-level BN, so ``s_plain``
+converts one way only, JAX to the port.
 """
 
 from __future__ import annotations
@@ -13,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "flatten_tree", "unflatten_tree"]
+__all__ = ["state_dict_from_jax", "state_dict_key", "flatten_tree", "unflatten_tree"]
 
 _TRUNK = {
     "stem": "focus",
@@ -39,6 +47,8 @@ _DETECT = {"detect_0": "detect_small", "detect_1": "detect_mid",
            "detect_2": "detect_large"}
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
+# BottleneckCSP's raw 1x1 convs (the generic rule would make them cba*)
+_RAW_CONV = {"cv_side": "side_conv", "cv_mid": "mid_conv"}
 
 
 def flatten_tree(tree: dict, prefix=()) -> dict:
@@ -73,15 +83,30 @@ def _module_name(path: tuple) -> str:
     names = [_TRUNK[sub]]
     in_block = False
     for part in inner:
-        if part.startswith("block"):
+        if part in _RAW_CONV:
+            names.append(_RAW_CONV[part])
+        elif part.startswith("block"):
             names.append(f"blocks.{part[len('block'):]}")
             in_block = True
         elif part.startswith("cv"):
             k = part[len("cv"):]
             names.append(f"conv_bn_act_{k}" if in_block else f"cba{k}")
-        else:  # "conv" / "bn" inside ConvBnAct
+        else:  # "conv" / "bn" inside ConvBnAct, "dw" / "pw", Focus's "conv"
             names.append(part)
     return ".".join(names)
+
+
+def state_dict_key(path: tuple) -> str:
+    """Flattened JAX path (params or batch_stats, leaf included) -> the
+    port's ``state_dict`` key."""
+    name, leaf = _module_name(path[:-1]), path[-1]
+    if leaf == "kernel":
+        return f"{name}.weight"
+    if path[-2] == "bn":
+        return f"{name}.{_BN_LEAF[leaf]}"
+    if leaf == "bias":  # detect conv bias
+        return f"{name}.bias"
+    raise KeyError(f"unmapped JAX parameter: {'/'.join(path)}")
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
@@ -90,19 +115,12 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     sd = {}
     for path, value in flatten_tree(params).items():
         value = np.asarray(value, dtype=np.float32)
-        name = _module_name(path[:-1])
-        leaf = path[-1]
-        if leaf == "kernel":  # HWIO -> OIHW
-            sd[f"{name}.weight"] = torch.from_numpy(value.transpose(3, 2, 0, 1).copy())
+        key = state_dict_key(path)
+        if path[-1] == "kernel":  # HWIO -> OIHW
+            value = value.transpose(3, 2, 0, 1)
         elif path[-2] == "bn":
-            sd[f"{name}.{_BN_LEAF[leaf]}"] = torch.from_numpy(value.copy())
-            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
-        elif leaf == "bias":  # detect conv bias
-            sd[f"{name}.bias"] = torch.from_numpy(value.copy())
-        else:
-            raise KeyError(f"unmapped JAX parameter: {'/'.join(path)}")
+            sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0)
+        sd[key] = torch.from_numpy(value.copy())
     for path, value in flatten_tree(batch_stats).items():
-        name = _module_name(path[:-1])
-        sd[f"{name}.{_BN_LEAF[path[-1]]}"] = torch.from_numpy(
-            np.asarray(value, dtype=np.float32).copy())
+        sd[state_dict_key(path)] = torch.from_numpy(np.asarray(value, dtype=np.float32).copy())
     return sd
