@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's YOLOv5s serving path on one NVIDIA GPU.
+"""Drive the PyTorch port on one NVIDIA GPU: YOLOv5s serving and training,
+the YOLOv5 knobs, and the anchor-free YOLOX and YOLOv8 families.
 
     python3 chip_smoke.py
 
@@ -106,6 +107,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``cli/detect.py`` on phase 9's checkpoint folded (the default),
    ``--no-fuse`` and ``--bf16``, with the checkpoint's bf16 map error in
    ulps and the share of f32 detections whose object bf16 finds;
+12. the anchor-free families (YOLOX with SimOTA, YOLOv8 with TAL and DFL;
+   the launch counters zeroed before each path and read after it; every NMS
+   call on these paths held against its plain twin): all nine new names
+   (yolox_s/m/l, yolox_darknet21/53, yolov8, yolov8n/s/m) at 640, nc=80,
+   seeded, their output convs widened as phase 4 widens YOLOv5's (random
+   weights put every score at the prior), raw maps card vs CPU at B=1 and
+   protocol img/s at B=64 (B1), the first call apart; yolox_s and yolov8
+   through the ``Evaluator`` with their family's decode and selection at
+   serving B=256 (B1) and B=8 (B2), protocol B=64 (B1) and protocol TTA B=2
+   (B3; for YOLOv8 each branch's boxes held to its maps' own grid), img/s
+   and each kernel's times at the path's candidates; each family's
+   ``Trainer`` with its preset (``configs/presets/train_yolo{x,v8}.yaml``,
+   TTA off in ``evaluate()``) on a synthetic set at the preset's batch
+   (YOLOX 4 x 2, YOLOv8 2 x 2), warmup active, 6 updates: ms per update,
+   peak memory, host syncs (must be 0), finite losses, then ``evaluate()``
+   over 2 val batches of 64 (B1, timed there); the step alone at 128 images
+   an update (phase 8's B=64 x 2 for YOLOX; 32 x 4 for YOLOv8, whose
+   micro-batch of 64 needs ~76 of the card's 79 GiB) with its ms, peak,
+   syncs and profiler split (model forward, the loss and of it the
+   assigner, the backward, the optimizer, the EMA);
+   ``cli/val.py`` (B1) and ``cli/detect.py --ckpt-dir`` folded and
+   ``--no-fuse`` (matched at 0.1 px) on the checkpoint the training wrote;
+   one update at 256 px card vs CPU (``TRAIN_TOL``) per family;
 then one ``{"kernels": [...]}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
@@ -118,6 +142,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1987,10 +2012,16 @@ def cpu_twin(model):
     return copy.deepcopy(model).cpu()
 
 
-def evaluator(model, cfg, device="cuda"):
-    from yoloseries_tpu_torch.evaluation import Evaluator, yolov5_decode_fn, yolov5_select_fn
+def evaluator(model, cfg, device="cuda", name="yolov5s"):
+    """An ``Evaluator`` with the decode and the fused selection of
+    ``name``'s family, at nc=80 and 640 px."""
+    from yoloseries_tpu_torch.evaluation import Evaluator
+    from yoloseries_tpu_torch.families import get_family
 
-    return Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=device)
+    fam = get_family(name)
+    hw = (KNOB_HW, KNOB_HW)
+    return Evaluator(model, fam.make_decode({}, 80, hw), cfg, fam.make_select({}, 80, hw)(cfg),
+                     device=device)
 
 
 def EvalConfig(**kw):  # noqa: N802 (the port's EvalConfig, imported where it is called)
@@ -2562,29 +2593,535 @@ def phase_knobs(card, recipe_dir):
     return out
 
 
-def b1_row(captured, launches, where, card):
-    """B1 at one later path's candidates (``captured``: boxes, scores,
-    thr of one call): times beside the plain twin, the bound and the chain,
-    as in phase 6; ``launches`` its launches on that path."""
-    from yoloseries_tpu_torch.kernels import nms_greedy as g
+# ----------------------------------- phase 12: the anchor-free families
 
+AF_MODELS = ("yolox_s", "yolox_m", "yolox_l", "yolox_darknet21", "yolox_darknet53",
+             "yolov8", "yolov8n", "yolov8s", "yolov8m")
+AF_SERVED = ("yolox_s", "yolov8")  # served, trained and validated
+AF_PRESETS = {"yolox_s": "train_yolox.yaml", "yolov8": "train_yolov8.yaml"}
+AF_UPDATES = 6  # one-update epochs of the presets' batch
+AF_VAL_B = 64
+AF_STEP_UPDATES = 3  # the step alone at 128 images an update: 1 untimed, then these
+# the step alone: phase 8's B=64 x 2 for YOLOX; YOLOv8's micro-batch of 64
+# peaks at ~76 of the card's 79 GiB and ran out of memory in one of two
+# runs, so it takes the same 128 images as 32 x 4
+AF_STEP_BATCH = {"yolox_s": (64, 2), "yolov8": (32, 4)}
+AF_KERNELS = {"nms_greedy": "yoloseries_tpu/kernels/nms_pallas.py:115",
+              "matrix_nms": "yoloseries_tpu/kernels/nms_matrix.py:151",
+              "matrix_nms_chunked": "yoloseries_tpu/kernels/nms_matrix.py:194"}
+AF_GROUPS = (  # (part, record_function ranges), the profiler's device time with children
+    ("model forward", ("train.forward",)),
+    ("loss forward (assigner included)", ("train.loss",)),
+    ("  of it the assigner", ("yolox_loss.assign", "yolov8_loss.assign")),
+    ("optimizer", ("train.optimizer",)),
+    ("EMA", ("train.ema",)),
+)  # the backward runs on autograd's thread, outside the ranges: the rest of the busy time
+
+
+def output_convs(model):
+    """(conv, map index, channel slice, std, bias) of every output conv of a
+    YOLOX or YOLOv8 model (A = 1): the raw-map std and the bias that
+    ``widen_anchor_free`` gives it."""
+    det = model.detect
+    if hasattr(det, "pred_small"):
+        heads = (det.pred_small, det.pred_middle, det.pred_large)
+        box = (0.0, 0.0, math.log(4.0), math.log(4.0))
+        return [item for i, h in enumerate(heads)
+                for item in ((h.reg, i, slice(0, 4), 0.5, box), (h.cof, i, slice(4, 5), 1.5, 0.0),
+                             (h.cls[-1], i, slice(5, None), 1.5, 0.0))]
+    out = []
+    for i, scale in enumerate(("xsmall", "small", "mid", "large")):
+        box = getattr(det, f"detect_{scale}_bbox")[2]
+        out += [(box, i, slice(0, box.out_channels), 1.5, 0.0),
+                (getattr(det, f"detect_{scale}_cls")[2], i, slice(box.out_channels, None), 1.5,
+                 0.0)]
+    return out
+
+
+def widen_anchor_free(model, img):
+    """Random weights put every score at the prior (YOLOX ~0.005, YOLOv8
+    ~1e-6) and YOLOX's boxes at ~0.1 px: scale each output conv's weight so
+    that its channels have std 1.5 on ``img``, as phase 4 does for YOLOv5's
+    detect convs, with bias 0; YOLOX's box conv gets std 0.5 and log 4 on w
+    and h instead, boxes near their cell and about 4 strides wide, as
+    phase 4's anchors make YOLOv5's (with std 1.5 there, wh = exp(p) spreads
+    over 20x and the merge finds almost no supporter)."""
+    convs = output_convs(model)
+    with torch.no_grad():
+        for conv, *_ in convs:
+            conv.bias.zero_()
+        maps = model(img)
+        for conv, i, sl, std, bias in convs:
+            conv.weight.mul_(std / maps[i][:, sl].float().std())
+            conv.bias.copy_(torch.as_tensor(bias, dtype=conv.bias.dtype))
+
+
+def af_models(card, calib):
+    """Every new name at 640, nc=80, seeded, output convs widened: raw maps
+    card vs CPU at B=1, protocol img/s at B=64 (the first call apart).
+    Returns the launches and the served models."""
+    from yoloseries_tpu_torch.models import create_model
+
+    launches, keep, out = {}, {}, {}
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255
+    img = knob_images(21, KNOB_B["protocol"])
+    for name in AF_MODELS:
+        model = create_model(name, num_class=80, device="cpu", seed=0).cuda()
+        widen_anchor_free(model, calib)
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.no_grad():
+            ref = cpu_twin(model)(x)
+            got = model(x.cuda())
+        err = max(float((g_.cpu() - r).abs().max()) for g_, r in zip(got, ref))
+        ev = evaluator(model, EvalConfig(**PROTOCOL), name=name)
+        with record_nms_inputs() as rec:
+            ev(img[:2])
+        bad, calls = twin_mismatches(rec)
+        torch.cuda.synchronize()
+        zero_counters()
+        first, best, _ = timed_calls(lambda: ev(img), n=2)
+        path = read_counters()
+        add_launches(launches, path)
+        out[name] = {"params": n_params, "raw_err": err, "img_per_s": len(img) / best * 1e3,
+                     "first_ms": first}
+        log(f"  {name}: {n_params} params; raw maps card vs CPU at B=1 max abs diff {err:.3e} "
+            f"(tolerance {MODEL_TOL}); protocol B=64 {len(img) / best * 1e3:.1f} img/s "
+            f"({best:.1f} ms, best of 2), first call {first:.1f} ms; launches {path}; {calls} "
+            f"NMS calls against the twins: {bad} mismatches [{card}]")
+        if not err <= MODEL_TOL:
+            fail(f"{name}: card and CPU raw maps disagree")
+        if path["nms_greedy"] == 0 or bad:
+            fail(f"{name}: protocol B=64 did not launch nms_greedy, or a twin mismatch")
+        if name in AF_SERVED:
+            keep[name] = model
+        else:
+            del model, ev
+            torch.cuda.empty_cache()
+    return launches, keep, out
+
+
+def kernel_at(name, captured, where, launches, card):
+    """One kernel at a path's candidates: CUDA-event and profiler device
+    time beside the plain twin, the bound and the dependent chain, as in
+    phase 6; the launches made here are taken off the counters."""
+    from yoloseries_tpu_torch.kernels import nms_greedy as g
+    from yoloseries_tpu_torch.kernels import nms_matrix as m
+
+    kernel, twin = {"nms_greedy": (g.nms_greedy, g.greedy_nms),
+                    "matrix_nms": (m.matrix_nms, m.matrix_nms_plain),
+                    "matrix_nms_chunked": (m.matrix_nms_chunked,
+                                           m.matrix_nms_chunked_plain)}[name]
     boxes, scores, thr = captured
-    saved = g.nms_greedy.launches
-    ki, kv = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
-    ms = cuda_ms(lambda: g.nms_greedy(boxes, scores, thr, MAX_KEEP), iters=20)
-    device_ms, _ = profiled_ms(lambda: g.nms_greedy(boxes, scores, thr, MAX_KEEP))
-    plain = cuda_ms(lambda: g.greedy_nms(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
-    g.nms_greedy.launches = saved
-    bound, by = bound_ms(boxes, greedy_ious(scores, ki, kv))
-    chain = int(kv.sum(dim=1).max()) * step_us("warp") * 1e-3
+    saved = read_counters()
+    ki, kv = kernel(boxes, scores, thr, MAX_KEEP)
+    ms = cuda_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP), iters=20)
+    device_ms, _ = profiled_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP))
+    plain = cuda_ms(lambda: twin(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
+    for k, c in counters().items():
+        c.launches = saved[k]
     b, k = scores.shape
-    log(f"  nms_greedy [{where} B={b}] K={k}: kernel {ms:.4f} ms (CUDA events), device time "
+    keepers = kv.sum(dim=1)
+    strips = None
+    if name == "nms_greedy":
+        ious = greedy_ious(scores, ki, kv)
+    elif name == "matrix_nms":
+        ious = int(keepers.sum()) * k
+    else:
+        strips = strip_inputs(boxes, scores, thr)
+        ious = int(keepers.sum()) * len(strips) * 1024
+    bound, by = bound_ms(boxes, ious)
+    steps, probe = chain_steps(name, boxes, scores, thr, keepers, strips)
+    chain = steps * step_us(probe) * 1e-3
+    live = int((scores > 0).sum())
+    log(f"  {name} [{where}] B={b} K={k}: kernel {ms:.4f} ms (CUDA events), device time "
         f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (profiler), plain "
-        f"twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), chain {chain:.6f} ms, "
-        f"launches on the path {launches} [{card}]")
-    return {"shape": f"{where} B={b} K={k} thr={thr}", "launches": launches,
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "chain_ms": chain}
+        f"twin {plain:.3f} ms, bound {bound:.6f} ms ({by}), chain {chain:.6f} ms, {live} live "
+        f"candidates, {int(keepers.sum())} kept, launches on the path {launches} [{card}]")
+    return {"shape": f"{where} B={b} K={k} thr={thr}", "launches": launches, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "chain_ms": chain, "live": live}
+
+
+def v8_branch_grid_check(ev, img):
+    """Every YOLOv8 TTA branch's dense boxes against the branch maps' own
+    grid: each box holds its cell's centre (DFL distances are 1..16 bins),
+    read from the maps' (h, w) and the strides here, not from the decode."""
+    from yoloseries_tpu_torch.evaluation.yolov8 import decode_yolov8
+
+    worst = np.inf
+    with torch.inference_mode():
+        for x, s, _ in ev._branches(ev._prepare(img), True):
+            maps = ev.model(x)
+            rows = decode_yolov8(maps, 80)
+            cx, cy = [], []
+            for mp, stride in zip(maps, (4, 8, 16, 32)):
+                h, w = mp.shape[2:]
+                ys, xs = torch.meshgrid(torch.arange(h, device=mp.device),
+                                        torch.arange(w, device=mp.device), indexing="ij")
+                cx.append(((xs + 0.5) * stride).reshape(-1))
+                cy.append(((ys + 0.5) * stride).reshape(-1))
+            cx, cy = torch.cat(cx), torch.cat(cy)
+            half = rows[..., 2:4] * 0.5
+            margin = torch.minimum(torch.minimum(cx - (rows[..., 0] - half[..., 0]),
+                                                 (rows[..., 0] + half[..., 0]) - cx),
+                                   torch.minimum(cy - (rows[..., 1] - half[..., 1]),
+                                                 (rows[..., 1] + half[..., 1]) - cy))
+            worst = min(worst, float(margin.min()))
+    return worst
+
+
+def af_serving(model, name, card):
+    """The family's serving paths through the ``Evaluator``: serving B=256
+    and B=8, protocol B=64, protocol TTA B=2. Each path's counters are
+    zeroed before it and must have grown; every NMS call is held against
+    its twin; each kernel is timed at the path's candidates."""
+    paths = [("serving B=256", SERVING, 256, "nms_greedy", False),
+             ("serving B=8", SERVING, 8, "matrix_nms", False),
+             ("protocol B=64", PROTOCOL, 64, "nms_greedy", False),
+             ("protocol TTA B=2", PROTOCOL, 2, "matrix_nms_chunked", True)]
+    rng = np.random.default_rng(22)
+    launches, rows, out = {}, {}, {}
+    for label, kw, b, kernel, tta in paths:
+        ev = evaluator(model, EvalConfig(**kw, use_tta=tta), name=name)
+        img = rng.integers(0, 256, (b, KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
+        ev(img)  # warm-up
+        torch.cuda.synchronize()
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        _, best, dets = timed_calls(lambda: ev(img), n=3)
+        path = read_counters()
+        if path[kernel] == 0:
+            fail(f"{name} {label}: {kernel} was not launched ({path})")
+        add_launches(launches, path)
+        check_detections(dets, b)
+        with record_nms_inputs() as rec:
+            ev(img)
+        bad, calls = twin_mismatches(rec)
+        if bad:
+            fail(f"{name} {label}: a kernel disagrees with its twin")
+        out[label] = {"img_per_s": b / best * 1e3, "ms": best, "launches": path,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "detections": int((dets[..., 4] > 0).sum())}
+        log(f"  {name} {label}: {b / best * 1e3:.1f} img/s (best of 3, {best:.1f} ms/batch), "
+            f"peak {out[label]['peak_gib']:.2f} GiB, {out[label]['detections']} detections, "
+            f"launches {path}; {calls} NMS calls against the twins: {bad} mismatches [{card}]")
+        rows[f"{name} {label}"] = (kernel, kernel_at(kernel, rec[kernel][0], f"{name} {label}",
+                                                     path[kernel], card))
+        if tta and name.startswith("yolov8"):
+            margin = v8_branch_grid_check(ev, img)
+            out[label]["grid_margin_px"] = margin
+            log(f"  {name} {label}: every branch's dense box holds its cell's centre on the "
+                f"branch maps' own grid, least margin {margin:.3f} px (must be > 0) [{card}]")
+            if not margin > 0:
+                fail(f"{name}: a TTA branch's boxes are off the branch's grid")
+    return launches, rows, out
+
+
+def af_hyp(name, batch, accumulate, updates):
+    """The family's preset (``configs/presets/``) for a run of ``updates``
+    one-update epochs at ``batch`` x ``accumulate``, augmentation closed;
+    the preset's TTA is off in ``evaluate()``, so that its mAP pass is B1's
+    (the TTA path is timed in the serving paths)."""
+    import yoloseries_tpu_torch
+    from yoloseries_tpu_torch.configs import load_hyp
+
+    presets = Path(yoloseries_tpu_torch.__file__).parent / "configs" / "presets"
+    hyp = load_hyp(presets / AF_PRESETS[name])
+    hyp.update(batch_size=batch, accumulate_loss_step=batch * accumulate, total_epoch=updates,
+               no_data_aug_epoch=updates, save_ckpt_every=2, use_tta=False, num_workers=8,
+               save_log_txt=False)
+    return hyp
+
+
+def af_step_split(trainer, step, batch, card, micro, acc):
+    """Device time of one update by part (torch.profiler ranges)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, _ = step(trainer.state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(t for t, _ in _device_events(prof)) / 1e3
+    if busy == 0:
+        log("  update profile: the profiler recorded no device time (not measured)")
+        return None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    split = {part: sum(e.device_time_total for e in events if e.name in names) / 1e3
+             for part, names in AF_GROUPS}
+    split["backward (model and loss) and the rest"] = busy - sum(
+        v for k, v in split.items() if not k.startswith("  "))
+    log(f"  one update at B={micro} x {acc}, profiled: wall {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms: " + ", ".join(
+            f"{k.strip()} {v:.1f} ms ({v / busy * 100:.1f}%)" for k, v in split.items())
+        + f" [{card}]")
+    return {"wall_ms": wall, "busy_ms": busy, **split}
+
+
+def af_training(name, card, tmp, val_dirs):
+    """The ``Trainer`` with the family's preset: ``AF_UPDATES`` one-update
+    epochs at the preset's batch, warmup active, then ``evaluate()`` over 2
+    val batches of 64 (B1, held against its twin); then the step alone at
+    128 images an update (``AF_STEP_BATCH``) with its peak, syncs and split.
+    Returns the launches,
+    the result, the checkpoint dir and the B1 candidates."""
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
+    from yoloseries_tpu_torch.train import Trainer, make_train_step
+
+    batch, acc = {"yolox_s": (4, 2), "yolov8": (2, 2)}[name]
+    train_dirs = synthetic_folder(tmp / "train", batch * acc, seed=30)
+    cfg = TrainConfig.from_hyp(af_hyp(name, batch, acc, AF_UPDATES), num_class=80, model=name,
+                               output_dir=str(tmp / "run"))
+    trainer = Trainer(cfg, train_dirs[:2], val_dirs=val_dirs[:2], names_path=train_dirs[2],
+                      log_fn=lambda *a: log("  trainer:", *a), device="cuda")
+    out = {}
+    try:
+        calib = collate_batch([trainer.val_dataset.get(i, np.random.default_rng(i))
+                               for i in range(8)], cfg.input_size, cfg.max_labels)["img"]
+        calib = torch.from_numpy(calib).cuda().permute(0, 3, 1, 2).float() / 255
+        model = trainer.state.model
+        settle_bn(model, calib)
+        widen_anchor_free(model.eval(), calib)
+        trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ends, _ = timed_updates(trainer)
+        timed = trainer._step_fns[tuple(cfg.input_size)]
+
+        def step_peak(state, batch):  # the peak of updates 3.. (1-2: cuDNN's autotuning)
+            if len(ends) == 2:
+                torch.cuda.reset_peak_memory_stats()
+            return timed(state, batch)
+
+        trainer._step_fns[tuple(cfg.input_size)] = step_peak
+        torch.cuda.empty_cache()
+        zero_counters()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer._val_loader = DataLoader(trainer.val_dataset, batch_size=AF_VAL_B,
+                                         max_labels=cfg.max_labels, workers=cfg.num_workers,
+                                         shuffle=False, infinite=False, enable_aug=False)
+        with record_nms_inputs() as rec:
+            t0 = time.perf_counter()
+            result = trainer.evaluate(max_batches=2)
+            eval_s = time.perf_counter() - t0
+        launches = read_counters()
+        mismatches, kept, live = greedy_mismatches(rec["nms_greedy"])
+        per_update = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        ms = float(np.median(per_update[1:]))
+        for i, h in enumerate(trainer.history):
+            log(f"  update {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(h.items())))
+        bad = [h for h in trainer.history if not all(np.isfinite(v) for v in h.values())]
+        if len(trainer.history) != AF_UPDATES or bad:
+            fail(f"{name} training: {len(trainer.history)} updates, non-finite losses {bad}")
+        host_batch = next(trainer.train_loader)
+        trainer.train_loader.stop()
+        syncs = step_syncs(trainer, host_batch)
+        log(f"{name} trained with its preset, B={batch} x {acc} at 640, f32: {ms:.1f} ms per "
+            f"update (median of updates 3-{AF_UPDATES}, CUDA events between update ends), "
+            f"peak {peak:.2f} GiB (updates 3-{AF_UPDATES}), {AF_UPDATES} updates in "
+            f"{train_s:.1f} s, {len(syncs)} host syncs in one update; evaluate() on the EMA "
+            f"weights, 2 batches of {AF_VAL_B}: mAP {result['map']:.6f} in {eval_s:.1f} s; "
+            f"launches {launches}; nms_greedy at {len(rec['nms_greedy'])} candidate sets: "
+            f"{live} live, {kept} kept, {mismatches} mismatches [{card}]")
+        for where in syncs[:5]:
+            log(f"    sync: {where}")
+        if syncs:
+            fail(f"{name} training: host syncs in one update")
+        if launches["nms_greedy"] == 0 or mismatches or kept == 0:
+            fail(f"{name} evaluate(): B1 not launched, a twin mismatch or nothing kept")
+        out.update(ms_per_update=ms, peak_gib=peak, syncs=len(syncs), map=result["map"],
+                   map50=result["map50"], eval_s=eval_s,
+                   loss_first=trainer.history[0]["tot_loss"],
+                   loss_last=trainer.history[-1]["tot_loss"])
+
+        # the step alone at 128 images an update, on the card already
+        micro, step_acc = AF_STEP_BATCH[name]
+        big = DataLoader(DetectionDataset(*val_dirs[:2], names_path=val_dirs[2],
+                                          input_size=cfg.input_size),
+                         batch_size=micro * step_acc, max_labels=cfg.max_labels,
+                         shuffle=False, infinite=False, enable_aug=False)
+        host_big = next(big)
+        big.stop()
+        step = make_train_step(trainer.family.make_loss(cfg.hyp, 80, cfg.input_size)[0],
+                               accumulate=step_acc)
+        dev_batch = trainer._device_batch(host_big)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.state, _ = step(trainer.state, dev_batch)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AF_STEP_UPDATES):
+            trainer.state, metrics = step(trainer.state, dev_batch)
+        end.record()
+        torch.cuda.synchronize()
+        alone = start.elapsed_time(end) / AF_STEP_UPDATES
+        big_peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer._step_fns[tuple(cfg.input_size)] = step
+        torch.cuda.empty_cache()
+        big_syncs = step_syncs(trainer, host_big)
+        log(f"  {name}: the step alone at B={micro} x {step_acc}, 640, f32: "
+            f"{alone:.1f} ms per update ({micro * step_acc / alone * 1e3:.1f} "
+            f"img/s; CUDA events over {AF_STEP_UPDATES} updates after one), peak "
+            f"{big_peak:.2f} GiB, {len(big_syncs)} host syncs, tot_loss "
+            f"{float(metrics['tot_loss']):.6g} [{card}]")
+        for where in big_syncs[:5]:
+            log(f"    sync: {where}")
+        split = af_step_split(trainer, step, dev_batch, card, micro, step_acc)
+        out.update(step_alone_ms=alone, step_peak_gib=big_peak, step_syncs=len(big_syncs),
+                   split=split)
+    finally:
+        trainer.close()
+    return launches, out, trainer.ckpt_dir, rec["nms_greedy"][0]
+
+
+def af_card_vs_cpu(name, card):
+    """One update at 256 px, B=4 x accumulate 2, warmup active, on the card
+    and on the CPU from the same weights and batch."""
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    ann = np.full((8, 32, 6), -1.0, np.float32)
+    for b in range(8):
+        n = int(rng.integers(1, 12))
+        xy = rng.uniform(0, 200, (n, 2))
+        ann[b, :n, :2] = xy
+        ann[b, :n, 2:4] = np.minimum(xy + rng.uniform(8, 120, (n, 2)), 256)
+        ann[b, :n, 4] = rng.integers(0, 80, n)
+        ann[b, :n, 5] = b
+    sd = create_model(name, num_class=80, device="cpu", seed=1).state_dict()
+    loss_fn, bal = get_family(name).make_loss({}, 80, (256, 256))
+    cfg = OptimizerConfig(batch_size=4, steps_per_epoch=1, warmup_steps_override=100)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(create_model(name, 80, device="cpu"), cfg, balances=bal,
+                                   state_dict=sd, device=dev)
+        state, metrics = make_train_step(loss_fn, accumulate=2)(
+            state, {"img": torch.from_numpy(img).to(dev), "ann": torch.from_numpy(ann).to(dev)})
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    loss_gpu, loss_cpu = out["cuda"][0]["tot_loss"], out["cpu"][0]["tot_loss"]
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst = max(float(((out["cuda"][1][k] - p).abs() / p.abs().clamp_min(1.0)).max())
+                for k, p in out["cpu"][1].items())
+    log(f"  {name}: card vs CPU, one update at 256 px, B=4 x 2: tot_loss "
+        f"{out['cuda'][0]['tot_loss']:.6f} vs {out['cpu'][0]['tot_loss']:.6f} (relative "
+        f"{rel:.2e}), foreground {out['cuda'][0].get('fg_nums', out['cuda'][0]['tar_nums']):g} "
+        f"vs {out['cpu'][0].get('fg_nums', out['cpu'][0]['tar_nums']):g}, largest parameter "
+        f"difference {worst:.2e} x max(1, |p|) (tolerance {TRAIN_TOL}) [{card}]")
+    if not (rel <= TRAIN_TOL and worst <= TRAIN_TOL):
+        fail(f"{name}: one update on the card disagrees with the CPU")
+    return {"loss_rel": rel, "param_rel": worst}
+
+
+def af_entry_points(name, ckpt_dir, val_dirs, tmp, card):
+    """``cli/val.py`` (B1 at B=16, K=4096, held against its twin) and
+    ``cli/detect.py --ckpt-dir`` folded and ``--no-fuse`` on the checkpoint
+    phase 12's training wrote."""
+    from yoloseries_tpu_torch.cli.detect import main as detect_main
+    from yoloseries_tpu_torch.cli.val import main as val_main
+
+    launches = {}
+    zero_counters()
+    with record_nms_inputs() as rec:
+        t0 = time.perf_counter()
+        result = val_main(["--model", name, "--ckpt-dir", str(ckpt_dir), "--val-img-dir",
+                           str(val_dirs[0]), "--val-lab-dir", str(val_dirs[1]), "--name-path",
+                           str(val_dirs[2]), "--device", "cuda"])
+        val_s = time.perf_counter() - t0
+    path = read_counters()
+    add_launches(launches, path)
+    bad, kept, live = greedy_mismatches(rec["nms_greedy"])
+    log(f"  {name} cli/val.py on its checkpoint: mAP {result['map']:.6f} in {val_s:.1f} s; "
+        f"launches {path}; nms_greedy: {live} live, {kept} kept, {bad} mismatches [{card}]")
+    if path["nms_greedy"] == 0 or bad or kept == 0:
+        fail(f"{name} cli/val.py: B1 not launched, a twin mismatch or nothing kept")
+    few = tmp / "few"
+    few.mkdir()
+    for p in sorted(val_dirs[0].iterdir())[:6]:
+        (few / p.name).symlink_to(p)
+    runs = {}
+    for label, flags in (("folded", []), ("no-fuse", ["--no-fuse"])):
+        zero_counters()
+        with record_nms_inputs() as rec:
+            runs[label] = detect_main(["--model", name, "--ckpt-dir", str(ckpt_dir), "--img-dir",
+                                       str(few), "--name-path", str(val_dirs[2]), "--save-dir",
+                                       str(tmp / f"detect_{label}"), "--device", "cuda", *flags])
+        path = read_counters()
+        add_launches(launches, path)
+        bad, calls = twin_mismatches(rec)
+        if bad or sum(path.values()) == 0:
+            fail(f"{name} cli/detect.py {label}: a twin mismatch or no kernel launched")
+    names = sorted(runs["no-fuse"])
+    share, n = matched_share([runs["folded"][k] for k in names],
+                             [runs["no-fuse"][k] for k in names], 1e-4, DETECT_BOX_TOL)
+    log(f"  {name} cli/detect.py --ckpt-dir on 6 images: folded vs --no-fuse {share * 100:.2f}% "
+        f"of {n} detections matched (conf 1e-4, box {DETECT_BOX_TOL} px; need >= "
+        f"{FOLD_MATCH * 100:.0f}%) [{card}]")
+    if n == 0 or share < FOLD_MATCH:
+        fail(f"{name} cli/detect.py: no detection, or folded disagrees with --no-fuse")
+    return launches, {"val_map": result["map"], "val_s": val_s, "detect_matched": share,
+                      "detections": n}
+
+
+def phase_anchor_free(card):
+    """Phase 12: YOLOX and YOLOv8 (see the module docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, out, seconds, kernel_rows = {}, {}, {}, {}
+    gen = torch.Generator().manual_seed(0)
+    calib = (torch.randint(0, 256, (2, 3, KNOB_HW // 2, KNOB_HW // 2), generator=gen).float()
+             / 255).cuda()
+
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"  ({label}: {seconds[label]:.1f} s)")
+        return result
+
+    path, served, out["models"] = part("models", af_models, card, calib)
+    add_launches(launches, path)
+    for name in AF_SERVED:
+        path, rows, out[f"{name} serving"] = part(f"{name} serving", af_serving, served[name],
+                                                  name, card)
+        add_launches(launches, path)
+        for label, (kernel, row) in rows.items():
+            kernel_rows.setdefault(kernel, {})[label] = row
+    del served
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        val_dirs = synthetic_folder(tmp / "val", 2 * AF_VAL_B, seed=31)
+        for name in AF_SERVED:
+            path, out[f"{name} training"], ckpt, captured = part(
+                f"{name} training", af_training, name, card, tmp / name, val_dirs)
+            add_launches(launches, path)
+            kernel_rows["nms_greedy"][f"{name} evaluate()"] = kernel_at(
+                "nms_greedy", captured, f"{name} evaluate()", path["nms_greedy"], card)
+            torch.cuda.empty_cache()
+            path, out[f"{name} entry points"] = part(f"{name} entry points", af_entry_points,
+                                                     name, ckpt, val_dirs, tmp / name, card)
+            add_launches(launches, path)
+    for name in AF_SERVED:
+        out[f"{name} card vs CPU"] = part(f"{name} card vs CPU", af_card_vs_cpu, name, card)
+    wall = time.perf_counter() - t_phase
+    log(f"anchor-free phase: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                        seconds.items())
+        + f"); launches {launches} [{card}]")
+    out.update(launches=launches, seconds=seconds, phase_s=wall, kernels=kernel_rows)
+    return out
 
 
 def main():
@@ -2620,8 +3157,8 @@ def main():
     log("== 8. training")
     train = phase_training(card)
     b1 = next(r for r in rows if r["name"] == "nms_greedy")
-    b1["train_val"] = b1_row(train["captured"], train["launches"]["nms_greedy"], "train val",
-                             card)
+    b1["train_val"] = kernel_at("nms_greedy", train["captured"], "train val",
+                                train["launches"]["nms_greedy"], card)
     b1["launches"] += train["launches"]["nms_greedy"]
     b1["training"] = {k: train[k] for k in (
         "ms_per_update", "img_per_s", "peak_gib", "map", "map50", "host_between_ms",
@@ -2631,8 +3168,8 @@ def main():
     log("== 9. the recipe")
     keep = tempfile.TemporaryDirectory()  # phase 9's checkpoint, for phase 11
     recipe = phase_recipe(card, Path(keep.name))
-    b1["recipe_val"] = b1_row(recipe.pop("val_captured"), recipe["val_launches"]["nms_greedy"],
-                              "recipe val", card)
+    b1["recipe_val"] = kernel_at("nms_greedy", recipe.pop("val_captured"), "recipe val",
+                                 recipe["val_launches"]["nms_greedy"], card)
     b1["launches"] += recipe["val_launches"]["nms_greedy"]
     b1["recipe"] = recipe
     for row in rows:  # detect's launches, whichever kernel its shape reached
@@ -2648,8 +3185,14 @@ def main():
     for row in rows:
         row["launches"] += knobs["launches"].get(row["name"], 0)
     b1["knobs"] = knobs
+    log("== 12. the anchor-free families: YOLOX and YOLOv8, serving, training, entry points")
+    anchor_free = phase_anchor_free(card)
+    for row in rows:
+        row["launches"] += anchor_free["launches"].get(row["name"], 0)
+        row["anchor_free"] = anchor_free["kernels"].get(row["name"], {})
+    b1["anchor_free_phase"] = {k: v for k, v in anchor_free.items() if k != "kernels"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows}, separators=(",", ":")))  # compact: ~20 KB
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

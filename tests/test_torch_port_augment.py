@@ -332,6 +332,30 @@ def test_process_loader_matches_threads(folder, tmp_path):
     assert proc.stdout.split()[-1] == "NOJAX"
 
 
+def test_join_pool_leaves_no_thread_behind():
+    """A pool that ran cv2 is gone from the OS when ``join_pool`` returns,
+    so that the next loader's fork catches none of its threads halfway out
+    (cv2's thread-local destructors take a lock the child would inherit
+    held); ``import_cv2`` holds cv2 to one thread, so that no cv2 pool
+    thread runs at a fork either."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yoloseries_tpu_torch.data.augment import import_cv2
+    from yoloseries_tpu_torch.data.loader import join_pool
+
+    cv2 = import_cv2()
+    assert cv2.getNumThreads() == 1
+    img = np.random.default_rng(0).integers(0, 256, (96, 96, 3), dtype=np.uint8)
+    pool = ThreadPoolExecutor(max_workers=3)
+    list(pool.map(lambda _: cv2.warpAffine(img, np.eye(2, 3), (96, 96)), range(6)))
+    tids = [t.native_id for t in pool._threads]
+    assert len(tids) == 3
+    join_pool(pool)
+    assert not any(Path(f"/proc/self/task/{t}").exists() for t in tids)
+    assert all(t.native_id not in tids for t in threading.enumerate())
+
+
 # ------------------------------------------------------------ builders
 
 def _tree(root: Path) -> dict:

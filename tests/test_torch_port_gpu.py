@@ -389,3 +389,81 @@ def test_soft_nms_on_card_matches_cpu(cuda, mode):
     same = (got[0].cpu() == want[0]) & valid
     assert int(same.sum()) >= 0.99 * int(valid.sum()) > 0
     assert float((got[2].cpu() - want[2]).abs()[same].max()) <= 1e-5
+
+
+# ------------------------------------------------ the anchor-free families
+
+def _seeded_family_model(name):
+    """``name`` at nc=3 from seed 1; YOLOX's output convs widened (its
+    prior biases put every box at ~0.1 px and every score near 0.005)."""
+    from yoloseries_tpu_torch.models import create_model
+
+    model = create_model(name, num_class=3, device="cpu", seed=1)
+    if name.startswith("yolox"):
+        with torch.no_grad():
+            for head in (model.detect.pred_small, model.detect.pred_middle,
+                         model.detect.pred_large):
+                for conv in (head.cls[-1], head.reg, head.cof):
+                    conv.bias.zero_()
+                head.reg.bias[2:] = 2.0
+    return model
+
+
+@pytest.mark.parametrize("name", ["yolox_s", "yolov8n"])
+def test_anchor_free_evaluator_on_card_matches_cpu(cuda, name):
+    """The family's raw maps (1e-3) and its ``Evaluator`` at the protocol
+    config (sorted confs 1e-4), card against CPU."""
+    from yoloseries_tpu_torch.evaluation import EvalConfig, Evaluator
+    from yoloseries_tpu_torch.families import get_family
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    family = get_family(name)
+    cfg = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
+                     num_candidates=1024)
+    img = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    x = torch.from_numpy(img).permute(0, 3, 1, 2).float() / 255
+    maps, outs = [], []
+    for dev in ("cpu", cuda):
+        model = _seeded_family_model(name).to(dev)
+        with torch.no_grad():
+            maps.append([m.cpu() for m in model(x.to(dev))])
+        ev = Evaluator(model, family.make_decode({}, 3, (128, 128)), cfg,
+                       family.make_select({}, 3, (128, 128))(cfg), device=dev)
+        outs.append(ev(img).cpu())
+    for a, b in zip(*maps):
+        assert float((a - b).abs().max()) <= 1e-3
+    conf = [np.sort(o[..., 4].numpy(), axis=1) for o in outs]
+    assert (conf[0] > 0).any()
+    np.testing.assert_allclose(conf[1], conf[0], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["yolox_s", "yolov8n"])
+def test_anchor_free_update_on_card_matches_cpu(cuda, name):
+    """One update (B=2 x accumulate 2) of the family's model and loss
+    (SimOTA, TAL) on the card and on the CPU from the same weights: tot_loss
+    within 1e-3 relative, the foreground counts equal, every parameter
+    within 1e-3 * max(1, |p|)."""
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = create_model(name, num_class=3, device="cpu", seed=0).state_dict()
+    loss_fn, bal = get_family(name).make_loss({}, 3, (64, 64))
+    img, ann = _train_batch(4, 64, 3)
+    out = {}
+    for dev in ("cpu", cuda):
+        state = create_train_state(create_model(name, 3, device="cpu"),
+                                   OptimizerConfig(batch_size=2), balances=bal, state_dict=sd,
+                                   device=dev)
+        state, metrics = make_train_step(loss_fn, accumulate=2)(
+            state, {"img": img.to(dev), "ann": ann.to(dev)})
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(m_gpu["tot_loss"] - m_cpu["tot_loss"]) <= 1e-3 * abs(m_cpu["tot_loss"])
+    assert m_gpu["tar_nums"] == m_cpu["tar_nums"]
+    for k, p in p_cpu.items():
+        assert float(((p_gpu[k] - p).abs() / p.abs().clamp_min(1.0)).max()) <= 1e-3, k

@@ -9,13 +9,16 @@ a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the JAX
 package's trees in an ``.npz`` whose keys are ``params/...`` and
 ``batch_stats/...`` paths joined by ``/``. The class count comes from
 ``--name-path``, else ``--num-class``. Images are letterboxed on the host,
-run through ``Evaluator`` (fused decode + class-aware NMS on the card), and
-the detections, in original-image pixels, are written as JSON.
+run through ``Evaluator`` with the decode and the fused selection of the
+model's family (``families.py``: yolov5, yolox, yolov8) and class-aware NMS
+on the card, and the detections, in original-image pixels, are written as
+JSON.
 
 Each conv+BN pair is folded into one biased conv before inference
 (``nn/deploy.py::fold_conv_bn``; ``--no-fuse`` keeps the BN passes).
 ``--s2d-stem`` builds the space-to-depth stem (a checkpoint trained with
-``s2d_stem: true``); ``--bf16`` computes in bfloat16. Not ported yet:
+``s2d_stem: true``; YOLOv5 and YOLOX on the CSP trunk); ``--bf16`` computes
+in bfloat16. A flag the model has no knob for raises ``ValueError``. Not ported yet:
 drawing the boxes on the images (ROADMAP A10).
 """
 
@@ -29,7 +32,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..evaluation import EvalConfig, Evaluator, yolov5_decode_fn, yolov5_select_fn
+from ..evaluation import EvalConfig, Evaluator
+from ..families import get_family
 from ..models import create_model
 from ..nn.deploy import fold_conv_bn
 from ..utils.weights import state_dict_from_jax, unflatten_tree
@@ -113,16 +117,20 @@ def main(argv=None):
     if args.fuse:
         fold_conv_bn(model.eval())
         print("fused conv+bn for deploy (BN running stats folded into conv weights and biases)")
-    cfg = EvalConfig(conf_threshold=args.conf, cls_threshold=args.conf,
-                     iou_threshold=args.iou, merge_boxes=True)
-    evaluator = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device=device)
+    family = get_family(args.model)
+    size = (args.input_size, args.input_size)
+    cfg = family.apply_eval_overrides(EvalConfig(conf_threshold=args.conf,
+                                                 cls_threshold=args.conf,
+                                                 iou_threshold=args.iou, merge_boxes=True))
+    select_builder = family.make_select({}, num_class, size) if family.make_select else None
+    evaluator = Evaluator(model, family.make_decode({}, num_class, size), cfg,
+                          select_builder(cfg) if select_builder else None, device=device)
 
     paths = sorted(p for p in Path(args.img_dir).iterdir()
                    if p.suffix.lower() in IMG_EXTENSIONS)
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     results = {}
-    size = (args.input_size, args.input_size)
     for start in range(0, len(paths), args.batch_size):
         chunk = paths[start:start + args.batch_size]
         batch = np.zeros((args.batch_size, *size, 3), np.uint8)

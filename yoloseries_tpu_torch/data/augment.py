@@ -10,8 +10,12 @@ one seed gives byte-identical samples in both packages on one machine.
 cv2 does the pixel work exactly as the JAX package calls it
 (``warpPerspective``/``warpAffine``, ``getRotationMatrix2D``,
 ``cvtColor`` + ``LUT``, ``addWeighted``, ``resize``, ``blur``). It is
-imported inside the functions that use it, so importing the port needs no
-cv2.
+imported inside the functions that use it (``import_cv2``), so importing the
+port needs no cv2, and held to one thread: the loader forks its workers from
+a process where cv2 has run, and a fork taken while one of cv2's pool
+threads holds the pool's lock leaves a worker blocked for good in its first
+parallel cv2 call (``warpAffine``). The results do not depend on the thread
+count.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..ops.metrics import pairwise_iou_np
 
 __all__ = [
     "AugmentConfig",
+    "import_cv2",
     "mosaic4",
     "mixup",
     "random_perspective",
@@ -40,6 +45,15 @@ __all__ = [
     "apply_transform_chain",
     "valid_boxes_mask",
 ]
+
+
+def import_cv2():
+    """cv2 with its thread pool off (``cv2.setNumThreads(1)``)."""
+    import cv2
+
+    if cv2.getNumThreads() != 1:
+        cv2.setNumThreads(1)
+    return cv2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +142,7 @@ def mosaic4(imgs, boxes_list, labels_list, mosaic_shape, fill_value, rng):
 def mixup(img1, boxes1, labels1, img2, boxes2, labels2, rng):
     """Beta(8, 8) blend of two images (``cv2.addWeighted``, rounding), the
     union of their boxes."""
-    import cv2
+    cv2 = import_cv2()
 
     ratio = float(rng.beta(8.0, 8.0))
     img = cv2.addWeighted(img1, ratio, img2, 1.0 - ratio, 0.0)
@@ -139,7 +153,7 @@ def mixup(img1, boxes1, labels1, img2, boxes2, labels2, rng):
 
 def sample_perspective_params(src_shape, cfg: AugmentConfig, rng, dst_size):
     """Draw the composed warp matrix T @ S @ R @ P @ C and its scale."""
-    import cv2
+    cv2 = import_cv2()
 
     height, width = dst_size
 
@@ -205,7 +219,7 @@ def random_perspective(img, boxes, labels, cfg: AugmentConfig, rng, dst_size=Non
     input size), boxes warped and filtered."""
     if rng.random() >= cfg.perspective_p:
         return img, boxes, labels
-    import cv2
+    cv2 = import_cv2()
 
     if dst_size is None:
         dst_size = cfg.input_size
@@ -227,7 +241,7 @@ def random_hsv(img, p, hgain, sgain, vgain, rng):
     lookup tables."""
     if rng.random() >= p:
         return img
-    import cv2
+    cv2 = import_cv2()
 
     r = rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
     hue, sat, val = cv2.split(cv2.cvtColor(img, cv2.COLOR_RGB2HSV))
@@ -302,7 +316,7 @@ def scale_jitting(img, boxes, labels, p, rng, dst_size=None):
     then a random crop of ``dst_size`` (default the image's size)."""
     if rng.random() >= p:
         return img, boxes, labels
-    import cv2
+    cv2 = import_cv2()
 
     flip = rng.random() > 0.5
     if dst_size is None:
@@ -360,7 +374,7 @@ def random_blur(img, p, rng):
     """With probability ``p``: a 5x5 mean filter."""
     if rng.random() >= p:
         return img
-    import cv2
+    cv2 = import_cv2()
 
     return cv2.blur(img, (5, 5))
 

@@ -31,7 +31,14 @@ from pathlib import Path
 
 import numpy as np
 
-from .augment import AugmentConfig, apply_transform_chain, mixup, mosaic4, valid_boxes_mask
+from .augment import (
+    AugmentConfig,
+    apply_transform_chain,
+    import_cv2,
+    mixup,
+    mosaic4,
+    valid_boxes_mask,
+)
 
 __all__ = ["DetectionDataset", "load_names"]
 
@@ -130,8 +137,11 @@ class DetectionDataset:
         """Open (warm: the sidecar exists) or build (cold: decode and resize
         every image, 8 threads) the memmap cache, by default beside
         ``img_dir``."""
-        import cv2
         from concurrent.futures import ThreadPoolExecutor
+
+        from .loader import join_pool
+
+        cv2 = import_cv2()
 
         h, w = self.input_size
         cache_dir = Path(cache_dir) if cache_dir else self.img_dir.parent
@@ -157,8 +167,11 @@ class DetectionDataset:
             self._orig_shapes[i] = img.shape[:2]
             self._cache[i, :rh, :rw] = cv2.resize(img, (rw, rh), interpolation=cv2.INTER_LINEAR)
 
-        with ThreadPoolExecutor(max_workers=8) as pool:
+        pool = ThreadPoolExecutor(max_workers=8)
+        try:
             list(pool.map(resize_one, range(len(self))))
+        finally:
+            join_pool(pool)  # a loader may fork next: see join_pool
         self._cache.flush()
         np.save(shapes_file, np.concatenate([self._cache_shapes, self._orig_shapes], 1))
 

@@ -24,7 +24,9 @@ import itertools
 import mmap
 import multiprocessing as mp
 import os
+import sys
 import threading
+import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
@@ -33,9 +35,10 @@ import numpy as np
 
 from ..ops.letterbox import letterbox_boxes, letterbox_image
 from ..ops.preprocess import letterbox_plan
+from .augment import import_cv2
 from .device_aug import N_TILES, device_aug_supported, plan_sample
 
-__all__ = ["infinite_indices", "collate_batch", "collate_plan_batch", "DataLoader"]
+__all__ = ["infinite_indices", "collate_batch", "collate_plan_batch", "DataLoader", "join_pool"]
 
 # Process workers are forked: each child inherits the dataset (its label
 # cache and its memmap) and the arena through this module's state when the
@@ -79,6 +82,26 @@ def _worker_plan(args):
         tiles = plan.pop("tiles")
         _arena_view(_WORKER["arena"], slot, _WORKER["slot_bytes"], tiles.shape)[...] = tiles
     return plan, boxes, classes, plane_hw
+
+
+def join_pool(pool: ThreadPoolExecutor) -> None:
+    """Shut ``pool`` down and return once its threads have left the OS.
+
+    ``Thread.join`` returns before a thread's thread-local destructors have
+    run, and cv2's take the lock of its thread-local storage. A fork in that
+    window (the next loader's worker pool) hands the child that lock held,
+    and the child's first cv2 call that registers its thread waits on it
+    for good (``warpAffine``, ``getRotationMatrix2D``). So wait until each
+    thread's ``/proc/self/task`` entry is gone (at most 10 s; where there is
+    no ``/proc`` it never exists)."""
+    threads = list(pool._threads)
+    pool.shutdown(wait=True)
+    deadline = time.monotonic() + 10.0
+    tids = [t.native_id for t in threads if t.native_id is not None]
+    while tids and time.monotonic() < deadline:
+        tids = [t for t in tids if os.path.exists(f"/proc/self/task/{t}")]
+        if tids:
+            time.sleep(0.001)
 
 
 def infinite_indices(size: int, seed: int, rank: int = 0, world_size: int = 1,
@@ -209,6 +232,8 @@ class DataLoader:
                              and mp.get_start_method(allow_none=True) in ("fork", None))
         self._proc_pool = None
         if use_processes:
+            if "cv2" in sys.modules:  # no cv2 pool thread may run at the fork
+                import_cv2()
             # one arena slot per sample of a batch: an image at the base size,
             # or the 8 tiles of a pixel plan
             tiles = N_TILES if self.device_aug and not self.device_cache else 1
@@ -347,10 +372,12 @@ class DataLoader:
         The producer finishes the batch it is making first (``_halt`` waits
         for it), so the pool is closed with no task in flight: a
         ``terminate()`` while workers send samples can deadlock on the
-        result pipe's lock, which a worker blocked on a full pipe holds."""
+        result pipe's lock, which a worker blocked on a full pipe holds. The
+        threads are gone from the OS when it returns (``join_pool``), so a
+        loader made next may fork."""
         self._halt()
         if self._proc_pool is not None:
             self._proc_pool.close()
             self._proc_pool.join()
             self._proc_pool = self._arena = None
-        self._pool.shutdown(wait=True)
+        join_pool(self._pool)

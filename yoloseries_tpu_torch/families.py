@@ -10,8 +10,9 @@ selection; counterpart of ``yoloseries_tpu/families.py``.
   candidate selection);
 * ``apply_eval_overrides(eval_cfg, hyp)``: the family's postprocess quirks.
 
-Only the yolov5 family is ported; the others (yolox, yolov7, yolov8,
-retinanet, fcos) are ROADMAP A9 and ``get_family`` raises for them.
+The yolov5, yolox and yolov8 families are ported; the others (yolov7,
+retinanet, fcos) are ROADMAP A9 and ``get_family`` raises for them. Neither
+yolox nor yolov8 overrides an ``EvalConfig`` field, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,12 +20,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
+
 from .losses.yolov5 import YOLOv5LossConfig, initial_balances, yolov5_loss
+from .losses.yolov8 import YOLOv8LossConfig, yolov8_loss
+from .losses.yolox import YOLOXLossConfig, yolox_initial_balances, yolox_loss
 from .ops.anchors import YOLOV5_ANCHORS
 
 __all__ = ["Family", "get_family", "family_of"]
 
-_NOT_PORTED = ("yolox", "yolov7", "yolov8", "fcos", "retinanet", "retinanet_experiment")
+_NOT_PORTED = ("yolov7", "fcos", "retinanet", "retinanet_experiment")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +81,92 @@ def _yolov5_family() -> Family:
     return Family("yolov5", make_loss, make_decode, make_select)
 
 
-_FAMILIES: dict[str, Family] = {"yolov5": _yolov5_family()}
+def _yolox_family() -> Family:
+    def make_loss(hyp, num_class, input_size):
+        cfg = YOLOXLossConfig(
+            num_class=num_class,
+            input_size=tuple(input_size),
+            topk=hyp.get("topk", 13),
+            center_radius=hyp.get("center_radius", 3.0),
+            iou_type=hyp.get("iou_type", "ciou"),
+            use_l1=hyp.get("use_l1", True),
+            iou_loss_scale=hyp.get("iou_loss_scale", 5.0),
+            cls_loss_scale=hyp.get("cls_loss_scale", 1.0),
+            cof_loss_scale=hyp.get("cof_loss_scale", 1.0),
+            l1_loss_scale=hyp.get("l1_loss_scale", 1.0),
+            class_smooth_factor=hyp.get("class_smooth_factor", 1.0),
+            use_focal_loss=hyp.get("use_focal_loss", False),
+        )
+
+        def loss_fn(preds, targets, balances):
+            return yolox_loss(preds, targets, balances, cfg)
+
+        return loss_fn, yolox_initial_balances()
+
+    def make_decode(hyp, num_class, input_size):
+        from .evaluation.yolox import decode_yolox
+
+        return lambda preds: decode_yolox(preds, num_class)
+
+    def make_select(hyp, num_class, input_size):
+        from .evaluation.yolox import decode_topk_yolox
+
+        def builder(eval_cfg):
+            return lambda preds: decode_topk_yolox(
+                preds, num_class, k=eval_cfg.num_candidates,
+                conf_threshold=eval_cfg.conf_threshold, cls_threshold=eval_cfg.cls_threshold)
+
+        return builder
+
+    return Family("yolox", make_loss, make_decode, make_select)
+
+
+def _yolov8_family() -> Family:
+    def make_loss(hyp, num_class, input_size):
+        cfg = YOLOv8LossConfig(  # the grid comes from the maps
+            num_class=num_class,
+            reg=hyp.get("reg", 16),
+            topk=hyp.get("topk", 13),
+            alpha=hyp.get("alpha", 0.5),
+            beta=hyp.get("beta", 6.0),
+            iou_loss_scale=hyp.get("iou_loss_scale", 7.5),
+            cls_loss_scale=hyp.get("cls_loss_scale", 0.5),
+            dfl_loss_scale=hyp.get("dfl_loss_scale", 1.5),
+            cls_pos_weight=hyp.get("cls_pos_weight", 1.0),
+            use_focal_factor=hyp.get("use_focal_loss", True),
+            focal_loss_gamma=hyp.get("focal_loss_gamma", 1.5),
+            focal_loss_alpha=hyp.get("focal_loss_alpha", 0.25),
+        )
+
+        def loss_fn(preds, targets, balances):
+            return yolov8_loss(preds, targets, balances, cfg)
+
+        return loss_fn, torch.ones(1)
+
+    def make_decode(hyp, num_class, input_size):
+        from .evaluation.yolov8 import decode_yolov8
+
+        reg = hyp.get("reg", 16)
+        return lambda preds: decode_yolov8(preds, num_class, reg=reg)
+
+    def make_select(hyp, num_class, input_size):
+        from .evaluation.yolov8 import decode_topk_yolov8
+
+        reg = hyp.get("reg", 16)
+
+        def builder(eval_cfg):
+            return lambda preds: decode_topk_yolov8(
+                preds, num_class, k=eval_cfg.num_candidates,
+                conf_threshold=eval_cfg.conf_threshold, cls_threshold=eval_cfg.cls_threshold,
+                reg=reg)
+
+        return builder
+
+    return Family("yolov8", make_loss, make_decode, make_select)
+
+
+_FAMILIES: dict[str, Family] = {"yolov5": _yolov5_family(), "yolox": _yolox_family(),
+                                "yolov8": _yolov8_family()}
 
 
 def family_of(model_name: str, default: str | None = None) -> str:

@@ -7,10 +7,13 @@ PyTorch idiom: every ``ConvBnAct``'s BN goes into its conv's weight and a
 new conv bias, and the BN module becomes ``nn.Identity``, so the BN pass is
 gone from the forward. Both compute the same function. ``BottleneckCSP``'s
 BN over the concat has no conv directly before it and stays, as in JAX.
+The heads' biased 1x1 convs (YOLOv5's detect convs, YOLOX's cls/reg/cof,
+YOLOv8's box and cls outputs) have no BN and are left as they are.
 RepConv's fold belongs to YOLOv7 (ROADMAP A9).
 
-The stem maps work on ``state_dict``s and the OIHW kernel layout: the 6x6/2
-stem conv over an image equals a 3x3/1 conv (padding 1) over
+The stem maps work on ``state_dict``s (YOLOv5's, or YOLOX's with the same
+trunk under ``neck.``) and the OIHW kernel layout: the 6x6/2 stem conv over
+an image equals a 3x3/1 conv (padding 1) over
 ``models.yolov5.space_to_depth2`` of it, with
 ``W3[o, (2*dy + dx) * C + c, ky, kx] = W6[o, c, 2*ky + dy, 2*kx + dx]``.
 """
@@ -84,7 +87,8 @@ def fold_stem_from_s2d(state_dict: dict) -> dict:
 
 def _map_stem(state_dict, fn, want_kh):
     out = dict(state_dict)
-    k = out.get(STEM_KEY)
-    if k is not None and k.dim() == 4 and k.shape[2] == want_kh:
-        out[STEM_KEY] = fn(k)
+    for key in (STEM_KEY, "neck." + STEM_KEY):  # YOLOv5; YOLOX's trunk under neck.
+        k = out.get(key)
+        if k is not None and k.dim() == 4 and k.shape[2] == want_kh:
+            out[key] = fn(k)
     return out

@@ -1,10 +1,10 @@
-"""Layer blocks of the YOLOv5 family, NCHW.
+"""Layer blocks of the YOLOv5, YOLOX and YOLOv8 families, NCHW.
 
 Counterpart of ``yoloseries_tpu/nn/layers.py``. Submodule names follow the
 reference's ``state_dict`` keys (``conv``/``bn``, ``cba1..3``,
-``blocks.N.conv_bn_act_1/2``) so a port ``state_dict`` converts to the JAX
-trees by name; the depthwise pair is ``dw``/``pw`` and ``Focus`` holds its
-conv as ``conv``, as in the JAX trees.
+``blocks.N.conv_bn_act_1/2``; C2f's ``conv1``/``conv2``/``block.N``) so a
+port ``state_dict`` converts to the JAX trees by name; the depthwise pair is
+``dw``/``pw`` and ``Focus`` holds its conv as ``conv``, as in the JAX trees.
 
 BatchNorm conventions: eps 1e-3 (1e-5 for ``BottleneckCSP``'s fuse BN),
 torch momentum 0.03 (flax 0.97), unbiased running variance (torch's own
@@ -46,6 +46,8 @@ __all__ = [
     "DWConvBnAct",
     "BasicBottleneck",
     "BottleneckCSP",
+    "C2f",
+    "ConciseBottleneck",
     "C3BottleneckCSP",
     "Focus",
     "SPP",
@@ -182,20 +184,59 @@ class DWConvBnAct(nn.Module):
 
 
 class BasicBottleneck(nn.Module):
-    """1x1 -> 3x3 conv pair with an optional residual."""
+    """``kernels[0]`` -> ``kernels[1]`` conv pair (default 1x1 -> 3x3) with an
+    optional residual; its convs are ``NAMES``."""
+
+    NAMES = ("conv_bn_act_1", "conv_bn_act_2")
 
     def __init__(self, in_channels: int, out_channels: int, shortcut: bool = True,
-                 expand_ratio: float = 0.5,
+                 expand_ratio: float = 0.5, kernels: tuple = (1, 3),
                  generator: torch.Generator | None = None):
         super().__init__()
         mid = int(in_channels * expand_ratio)
-        self.conv_bn_act_1 = ConvBnAct(in_channels, mid, 1, generator=generator)
-        self.conv_bn_act_2 = ConvBnAct(mid, out_channels, 3, generator=generator)
+        first, second = self.NAMES
+        setattr(self, first, ConvBnAct(in_channels, mid, kernels[0], generator=generator))
+        setattr(self, second, ConvBnAct(mid, out_channels, kernels[1], generator=generator))
         self.residual = shortcut and in_channels == out_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv_bn_act_2(self.conv_bn_act_1(x))
+        first, second = self.NAMES
+        y = getattr(self, second)(getattr(self, first)(x))
         return y + x if self.residual else y
+
+
+class ConciseBottleneck(BasicBottleneck):
+    """C2f's inner block: two 3x3 convs at the input width, named ``conv1`` /
+    ``conv2`` as in the reference's ConciseBottleneck."""
+
+    NAMES = ("conv1", "conv2")
+
+    def __init__(self, channels: int, shortcut: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__(channels, channels, shortcut, expand_ratio=1.0, kernels=(3, 3),
+                         generator=generator)
+
+
+class C2f(nn.Module):
+    """YOLOv8's concise CSP block: ``conv1`` (1x1) split in two halves, a
+    chain of ``num_blocks`` ``ConciseBottleneck``s on the second, every
+    part concatenated, ``conv2`` (1x1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, shortcut: bool = False,
+                 num_blocks: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        mid = out_channels // 2
+        self.mid = mid
+        self.conv1 = ConvBnAct(in_channels, 2 * mid, 1, generator=generator)
+        self.block = nn.ModuleList(ConciseBottleneck(mid, shortcut, generator=generator)
+                                   for _ in range(num_blocks))
+        self.conv2 = ConvBnAct((2 + num_blocks) * mid, out_channels, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        parts = list(self.conv1(x).split(self.mid, dim=1))
+        for block in self.block:
+            parts.append(block(parts[-1]))
+        return self.conv2(torch.cat(parts, dim=1))
 
 
 class C3BottleneckCSP(nn.Module):

@@ -1,7 +1,7 @@
 """Box-format conversions on tensors (last dim 4, any leading dims).
 
 Counterpart of ``yoloseries_tpu/ops/boxes.py`` for the conversions the
-YOLOv5 loss uses, with the same operation order. The mAP pass maps boxes
+losses and decoders use, with the same operation order. The mAP pass maps boxes
 back on the host (``ops/letterbox.py::unletterbox_boxes_np``).
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["xyxy2xywh", "xywh2xyxy", "xyxy2xywhn"]
+__all__ = ["xyxy2xywh", "xywh2xyxy", "xyxy2xywhn", "tblr2xyxy", "xyxy2tblr"]
 
 
 def xyxy2xywh(boxes: torch.Tensor) -> torch.Tensor:
@@ -33,3 +33,18 @@ def xyxy2xywhn(boxes: torch.Tensor, img_wh) -> torch.Tensor:
     scale = torch.tensor([w, h, w, h], dtype=dtype).to(boxes.device, non_blocking=True)
     return xyxy2xywh(boxes) / scale
 
+
+
+def tblr2xyxy(tblr: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tensor:
+    """[t, b, l, r] distances from grid points -> xyxy. tblr (..., N, 4);
+    grid_xy (N, 2), or any shape that broadcasts with tblr's."""
+    t, b, l, r = tblr.unbind(-1)
+    gx, gy = grid_xy[..., 0], grid_xy[..., 1]
+    return torch.stack([gx - l, gy - t, gx + r, gy + b], dim=-1)
+
+
+def xyxy2tblr(xyxy: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tensor:
+    """xyxy -> [t, b, l, r] distances from grid points."""
+    xmin, ymin, xmax, ymax = xyxy.unbind(-1)
+    gx, gy = grid_xy[..., 0], grid_xy[..., 1]
+    return torch.stack([gy - ymin, ymax - gy, gx - xmin, xmax - gx], dim=-1)
