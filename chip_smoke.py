@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU: YOLOv5s serving and training,
-the YOLOv5 knobs, and the anchor-free YOLOX and YOLOv8 families.
+the YOLOv5 knobs, the anchor-free YOLOX and YOLOv8 families, and YOLOv7,
+RetinaNet and FCOS.
 
     python3 chip_smoke.py
 
@@ -90,8 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
 11. the YOLOv5 knobs (the launch counters zeroed before each path and read
    after it; every NMS call on these paths held against its plain twin):
    all nine specs at 640, nc=80 (seeded, detect convs widened as in phase
-   4), raw maps card vs CPU at B=1 and protocol img/s at B=64 (B1), the
-   first call's time apart; yolov5s folded (``nn/deploy.py``) against
+   4), raw maps card vs CPU at B=1, the protocol NMS of two images (B1)
+   against its twin and protocol img/s at B=64 (B1), the first call's time
+   apart; yolov5s folded (``nn/deploy.py``) against
    unfused in turns (serving B=256 and B=8, protocol B=64; raw maps,
    detections matched, a profiler split of serving B=256 each); the s2d
    stem with ``fold_stem_to_s2d`` weights against the 6x6 stem; bf16
@@ -100,10 +102,13 @@ Phases (any failure exits non-zero and prints no result line):
    same candidates, and its ms; WBF at serving TTA B=2, card against CPU,
    split into the branches on the card and the fusion on the host; the
    ``Trainer`` (phase 8's set and batch) with ``remat``, ``s2d_stem`` and
-   bf16 beside f32 and a second f32 run (the control), 3 updates each: ms
-   per update, peak memory, host syncs (must be 0), remat's first update
-   and its losses against f32's (``TRAIN_TOL``), its parameters after all
-   updates against the control's drift, and its peak (must be lower);
+   bf16 beside f32, 3 updates each on the default kernels: ms per update,
+   peak memory, host syncs (must be 0), remat's peak (must be lower); then,
+   untimed, on deterministic kernels (cuDNN's, and torch's deterministic
+   mode, which raises where an op has none), f32, a second f32 run (the
+   control) and remat: remat's first update and its losses against f32's
+   (``TRAIN_TOL``), its parameters after all updates against the
+   control's drift;
    ``cli/detect.py`` on phase 9's checkpoint folded (the default),
    ``--no-fuse`` and ``--bf16``, with the checkpoint's bf16 map error in
    ulps and the share of f32 detections whose object bf16 finds;
@@ -112,8 +117,9 @@ Phases (any failure exits non-zero and prints no result line):
    call on these paths held against its plain twin): all nine new names
    (yolox_s/m/l, yolox_darknet21/53, yolov8, yolov8n/s/m) at 640, nc=80,
    seeded, their output convs widened as phase 4 widens YOLOv5's (random
-   weights put every score at the prior), raw maps card vs CPU at B=1 and
-   protocol img/s at B=64 (B1), the first call apart; yolox_s and yolov8
+   weights put every score at the prior), raw maps card vs CPU at B=1, the
+   protocol NMS of two images (B1) against its twin and protocol img/s at
+   B=64 (B1), the first call apart; yolox_s and yolov8
    through the ``Evaluator`` with their family's decode and selection at
    serving B=256 (B1) and B=8 (B2), protocol B=64 (B1) and protocol TTA B=2
    (B3; for YOLOv8 each branch's boxes held to its maps' own grid), img/s
@@ -130,7 +136,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``cli/val.py`` (B1) and ``cli/detect.py --ckpt-dir`` folded and
    ``--no-fuse`` (matched at 0.1 px) on the checkpoint the training wrote;
    one update at 256 px card vs CPU (``TRAIN_TOL``) per family;
-then one ``{"kernels": [...]}`` line.
+13. the last families (YOLOv7 with its OTA refinement, RetinaNet and its
+   objectness experiment, FCOS on its GroupNorm ResNet and on the CSP
+   trunk; the launch counters zeroed before each path and read after it;
+   every NMS call against its plain twin): the five names at 640, nc=80,
+   seeded, output convs widened (forward hooks read each conv's raw
+   output; RetinaNet's classification tower biases to 0, its focal prior
+   kills the tower's ReLUs), with cuDNN's heuristics in place of its
+   autotuning (for time), raw maps card vs CPU at B=1 (the largest
+   difference over the map's scale) and protocol img/s at B=64, the first
+   call apart; yolov7 folded (conv+BN, then RepConv's deploy form) against
+   unfolded; yolov7, retinanet and fcos through the ``Evaluator`` with their
+   family's eval overrides (the v7 gate, RetinaNet's written-back merge,
+   FCOS's sqrt scores) at serving B=256 (B1) and B=8 (B2), protocol B=64
+   (B1) and protocol TTA B=2 (B3), each kernel timed at the path's
+   candidates; each family's ``Trainer`` with its preset (3 one-update
+   epochs at the preset's batch: 4 x 2, 48 x 1, 64 x 1), 0 host syncs,
+   ``evaluate()`` over 2 val batches of 64 (B1); the step alone at 128
+   images an update (32 x 4) with its profiler split and the assigner's
+   share; ``cli/val.py`` and ``cli/detect.py`` folded/``--no-fuse`` on the
+   checkpoint; one update at 256 px card vs CPU (RetinaNet with its
+   preset's IoU loss); its rows on a ``{"last_families": ...}`` line;
+then one ``{"kernels": [...]}`` line, with a summary per kernel of phase
+13's rows.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (cuDNN and
@@ -143,6 +171,7 @@ import contextlib
 import faulthandler
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -151,7 +180,12 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# cuBLAS's deterministic workspace, which torch's deterministic mode asks
+# for (phase 11's drift check); read once, before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 MAX_KEEP = 300
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -2013,13 +2047,14 @@ def cpu_twin(model):
 
 
 def evaluator(model, cfg, device="cuda", name="yolov5s"):
-    """An ``Evaluator`` with the decode and the fused selection of
-    ``name``'s family, at nc=80 and 640 px."""
+    """An ``Evaluator`` with the decode, the fused selection and the eval
+    overrides of ``name``'s family, at nc=80 and 640 px."""
     from yoloseries_tpu_torch.evaluation import Evaluator
     from yoloseries_tpu_torch.families import get_family
 
     fam = get_family(name)
     hw = (KNOB_HW, KNOB_HW)
+    cfg = fam.apply_eval_overrides(cfg, {})
     return Evaluator(model, fam.make_decode({}, 80, hw), cfg, fam.make_select({}, 80, hw)(cfg),
                      device=device)
 
@@ -2065,8 +2100,9 @@ def device_split(fn):
 
 
 def knob_specs(card, calib, tol):
-    """Every spec at 640: raw maps card vs CPU at B=1, protocol img/s at
-    B=64 (B1), the first call apart. Returns the launches and yolov5s."""
+    """Every spec at 640: raw maps card vs CPU at B=1, the protocol NMS of
+    two images against its twin, protocol img/s at B=64 (B1), the first
+    call apart. Returns the launches and yolov5s."""
     launches, keep = {}, None
     gen = torch.Generator().manual_seed(11)
     x = torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255
@@ -2095,7 +2131,7 @@ def knob_specs(card, calib, tol):
         if not err <= tol:
             fail(f"{name}: card and CPU raw maps disagree")
         if path["nms_greedy"] == 0 or bad:
-            fail(f"{name}: protocol B=64 did not launch nms_greedy, or a twin mismatch")
+            fail(f"{name}: the protocol config did not launch nms_greedy, or a twin mismatch")
         if size == "s":
             keep = model
         else:
@@ -2336,33 +2372,51 @@ def knob_updates(trainer, host_batch):
     return ms, peak, [float(v) for v in losses], first
 
 
+@contextlib.contextmanager
+def deterministic_kernels():
+    """cuDNN's deterministic algorithms and torch's deterministic mode, which
+    raises where an op has no deterministic implementation."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+
 def knob_training(card, tmp):
+    """The ``Trainer`` with each knob, timed on the default kernels; then
+    remat's drift check, untimed, on deterministic kernels."""
     from yoloseries_tpu_torch.configs import TrainConfig
     from yoloseries_tpu_torch.train import Trainer
 
     train_dirs = synthetic_folder(tmp / "train", TRAIN_BATCH * TRAIN_ACCUMULATE, seed=0)
     hyp = train_hyp(1)
     host = None  # phase 8's batch: the first Trainer's loader makes it
-    out, states, firsts = {}, {}, {}
-    for label, extra, dtype in (("f32", {}, torch.float32), ("f32 control", {}, torch.float32),
-                                ("remat", {"remat": True}, None),
-                                ("s2d_stem", {"s2d_stem": True}, None),
-                                ("bf16", {}, torch.bfloat16)):
+
+    def run(label, extra, dtype, syncs_too):
+        nonlocal host
         cfg = TrainConfig.from_hyp({**hyp, **extra}, num_class=80, model="yolov5s",
                                    output_dir=str(tmp / f"run_{label.replace(' ', '_')}"))
         trainer = Trainer(cfg, train_dirs[:2], names_path=train_dirs[2],
-                          compute_dtype=dtype or torch.float32, log_fn=lambda *a: None,
-                          device="cuda")
+                          compute_dtype=dtype, log_fn=lambda *a: None, device="cuda")
         if host is None:
             host = next(trainer.train_loader)
         trainer.train_loader.stop()
         try:
             torch.cuda.empty_cache()
-            ms, peak, losses, firsts[label] = knob_updates(trainer, host)
-            syncs = step_syncs(trainer, host)
+            ms, peak, losses, first = knob_updates(trainer, host)
+            syncs = step_syncs(trainer, host) if syncs_too else []
         finally:
             trainer.close()
-        states[label] = trainer.state.model.state_dict()
+        return cfg, ms, peak, losses, first, trainer.state.model.state_dict(), syncs
+
+    out = {}
+    for label, extra, dtype in (("f32", {}, torch.float32), ("remat", {"remat": True}, None),
+                                ("s2d_stem", {"s2d_stem": True}, None),
+                                ("bf16", {}, torch.bfloat16)):
+        cfg, ms, peak, losses, _, _, syncs = run(label, extra, dtype or torch.float32, True)
         out[label] = {"ms": ms, "peak_gib": peak, "losses": losses, "syncs": len(syncs)}
         log(f"  training {label}: {ms:.1f} ms per update (B={TRAIN_BATCH} x {TRAIN_ACCUMULATE} "
             f"at {cfg.input_size[0]}, CUDA events over updates 2-{KNOB_UPDATES}), peak "
@@ -2370,11 +2424,19 @@ def knob_training(card, tmp):
             f"host syncs in one update [{card}]")
         if syncs or not all(np.isfinite(losses)):
             fail(f"training {label}: host syncs {syncs[:3]} or a non-finite loss")
-        del trainer
     # remat against no remat, the same batches from the same weights: the
     # parameters and BN buffers after one update and the losses of all
     # updates within TRAIN_TOL; after all updates, remat's drift from f32
-    # against the control's, a second f32 run of the same code
+    # against the control's, a second f32 run of the same code. On
+    # deterministic kernels: with cuDNN's and the index backward's atomics
+    # two f32 runs parted by 5.8e-05-1.1e-03 after four updates and remat by
+    # 4.5e-04-1.05e-03, which failed this check once (one H100)
+    firsts, states, losses = {}, {}, {}
+    with deterministic_kernels():
+        for label, extra in (("f32", {}), ("f32 control", {}), ("remat", {"remat": True})):
+            _, _, _, losses[label], firsts[label], states[label], _ = run(
+                f"{label} deterministic", extra, torch.float32, False)
+
     def worst(a, b):
         return max(float(((b[k].double() - v.double()).abs()
                           / v.double().abs().clamp_min(1.0)).max()) for k, v in a.items())
@@ -2382,13 +2444,13 @@ def knob_training(card, tmp):
     one, last = worst(firsts["f32"], firsts["remat"]), worst(states["f32"], states["remat"])
     ctl_one = worst(firsts["f32"], firsts["f32 control"])
     ctl_last = worst(states["f32"], states["f32 control"])
-    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(out["remat"]["losses"],
-                                                       out["f32"]["losses"]))
-    log(f"  remat vs no remat: losses within {loss_rel:.2e} relative; parameters and BN buffers "
-        f"after one update within {one:.2e} x max(1, |p|) (tolerance {TRAIN_TOL}), after all "
-        f"{KNOB_UPDATES + 1} {last:.2e}; the f32 control against f32: {ctl_one:.2e} after one, "
-        f"{ctl_last:.2e} after all (remat's may be {REMAT_DRIFT:g}x); peak "
-        f"{out['remat']['peak_gib']:.2f} against {out['f32']['peak_gib']:.2f} GiB [{card}]")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(losses["remat"], losses["f32"]))
+    log(f"  remat vs no remat, deterministic kernels, untimed: losses within {loss_rel:.2e} "
+        f"relative; parameters and BN buffers after one update within {one:.2e} x max(1, |p|) "
+        f"(tolerance {TRAIN_TOL}), after all {KNOB_UPDATES} {last:.2e}; the f32 control "
+        f"against f32: {ctl_one:.2e} after one, {ctl_last:.2e} after all (remat's may be "
+        f"{REMAT_DRIFT:g}x); peak (default kernels) {out['remat']['peak_gib']:.2f} against "
+        f"{out['f32']['peak_gib']:.2f} GiB [{card}]")
     if not (one <= TRAIN_TOL and loss_rel <= TRAIN_TOL):
         fail("remat changes the update")
     if not last <= max(TRAIN_TOL, REMAT_DRIFT * ctl_last):
@@ -2598,21 +2660,28 @@ def phase_knobs(card, recipe_dir):
 AF_MODELS = ("yolox_s", "yolox_m", "yolox_l", "yolox_darknet21", "yolox_darknet53",
              "yolov8", "yolov8n", "yolov8s", "yolov8m")
 AF_SERVED = ("yolox_s", "yolov8")  # served, trained and validated
-AF_PRESETS = {"yolox_s": "train_yolox.yaml", "yolov8": "train_yolov8.yaml"}
+AF_PRESETS = {"yolox_s": "train_yolox.yaml", "yolov8": "train_yolov8.yaml",
+              "yolov7": "train_yolov7.yaml", "retinanet": "train_retinanet.yaml",
+              "fcos": "train_fcos.yaml"}
+# each preset's batch_size x accumulate (accumulate_loss_step / batch_size)
+PRESET_BATCH = {"yolox_s": (4, 2), "yolov8": (2, 2), "yolov7": (4, 2), "retinanet": (48, 1),
+                "fcos": (64, 1)}
 AF_UPDATES = 6  # one-update epochs of the presets' batch
 AF_VAL_B = 64
 AF_STEP_UPDATES = 3  # the step alone at 128 images an update: 1 untimed, then these
 # the step alone: phase 8's B=64 x 2 for YOLOX; YOLOv8's micro-batch of 64
 # peaks at ~76 of the card's 79 GiB and ran out of memory in one of two
 # runs, so it takes the same 128 images as 32 x 4
-AF_STEP_BATCH = {"yolox_s": (64, 2), "yolov8": (32, 4)}
+AF_STEP_BATCH = {"yolox_s": (64, 2), "yolov8": (32, 4), "yolov7": (32, 4), "retinanet": (32, 4),
+                 "fcos": (32, 4)}
 AF_KERNELS = {"nms_greedy": "yoloseries_tpu/kernels/nms_pallas.py:115",
               "matrix_nms": "yoloseries_tpu/kernels/nms_matrix.py:151",
               "matrix_nms_chunked": "yoloseries_tpu/kernels/nms_matrix.py:194"}
 AF_GROUPS = (  # (part, record_function ranges), the profiler's device time with children
     ("model forward", ("train.forward",)),
     ("loss forward (assigner included)", ("train.loss",)),
-    ("  of it the assigner", ("yolox_loss.assign", "yolov8_loss.assign")),
+    ("  of it the assigner", ("yolox_loss.assign", "yolov8_loss.assign", "yolov7_loss.assign",
+                              "retinanet_loss.assign", "fcos_loss.assign")),
     ("optimizer", ("train.optimizer",)),
     ("EMA", ("train.ema",)),
 )  # the backward runs on autograd's thread, outside the ranges: the rest of the busy time
@@ -2658,8 +2727,9 @@ def widen_anchor_free(model, img):
 
 def af_models(card, calib):
     """Every new name at 640, nc=80, seeded, output convs widened: raw maps
-    card vs CPU at B=1, protocol img/s at B=64 (the first call apart).
-    Returns the launches and the served models."""
+    card vs CPU at B=1, the protocol NMS of two images against its twin,
+    protocol img/s at B=64 (B1), the first call apart. Returns the launches
+    and the served models."""
     from yoloseries_tpu_torch.models import create_model
 
     launches, keep, out = {}, {}, {}
@@ -2692,7 +2762,7 @@ def af_models(card, calib):
         if not err <= MODEL_TOL:
             fail(f"{name}: card and CPU raw maps disagree")
         if path["nms_greedy"] == 0 or bad:
-            fail(f"{name}: protocol B=64 did not launch nms_greedy, or a twin mismatch")
+            fail(f"{name}: the protocol config did not launch nms_greedy, or a twin mismatch")
         if name in AF_SERVED:
             keep[name] = model
         else:
@@ -2862,8 +2932,8 @@ def af_step_split(trainer, step, batch, card, micro, acc):
     return {"wall_ms": wall, "busy_ms": busy, **split}
 
 
-def af_training(name, card, tmp, val_dirs):
-    """The ``Trainer`` with the family's preset: ``AF_UPDATES`` one-update
+def af_training(name, card, tmp, val_dirs, updates=AF_UPDATES):
+    """The ``Trainer`` with the family's preset: ``updates`` one-update
     epochs at the preset's batch, warmup active, then ``evaluate()`` over 2
     val batches of 64 (B1, held against its twin); then the step alone at
     128 images an update (``AF_STEP_BATCH``) with its peak, syncs and split.
@@ -2873,9 +2943,9 @@ def af_training(name, card, tmp, val_dirs):
     from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
     from yoloseries_tpu_torch.train import Trainer, make_train_step
 
-    batch, acc = {"yolox_s": (4, 2), "yolov8": (2, 2)}[name]
+    batch, acc = PRESET_BATCH[name]
     train_dirs = synthetic_folder(tmp / "train", batch * acc, seed=30)
-    cfg = TrainConfig.from_hyp(af_hyp(name, batch, acc, AF_UPDATES), num_class=80, model=name,
+    cfg = TrainConfig.from_hyp(af_hyp(name, batch, acc, updates), num_class=80, model=name,
                                output_dir=str(tmp / "run"))
     trainer = Trainer(cfg, train_dirs[:2], val_dirs=val_dirs[:2], names_path=train_dirs[2],
                       log_fn=lambda *a: log("  trainer:", *a), device="cuda")
@@ -2886,7 +2956,7 @@ def af_training(name, card, tmp, val_dirs):
         calib = torch.from_numpy(calib).cuda().permute(0, 3, 1, 2).float() / 255
         model = trainer.state.model
         settle_bn(model, calib)
-        widen_anchor_free(model.eval(), calib)
+        (widen_anchor_free if name in AF_SERVED else widen_outputs)(model.eval(), calib)
         trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
         ends, _ = timed_updates(trainer)
         timed = trainer._step_fns[tuple(cfg.input_size)]
@@ -2918,14 +2988,14 @@ def af_training(name, card, tmp, val_dirs):
         for i, h in enumerate(trainer.history):
             log(f"  update {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(h.items())))
         bad = [h for h in trainer.history if not all(np.isfinite(v) for v in h.values())]
-        if len(trainer.history) != AF_UPDATES or bad:
+        if len(trainer.history) != updates or bad:
             fail(f"{name} training: {len(trainer.history)} updates, non-finite losses {bad}")
         host_batch = next(trainer.train_loader)
         trainer.train_loader.stop()
         syncs = step_syncs(trainer, host_batch)
         log(f"{name} trained with its preset, B={batch} x {acc} at 640, f32: {ms:.1f} ms per "
-            f"update (median of updates 3-{AF_UPDATES}, CUDA events between update ends), "
-            f"peak {peak:.2f} GiB (updates 3-{AF_UPDATES}), {AF_UPDATES} updates in "
+            f"update (median of updates 3-{updates}, CUDA events between update ends), "
+            f"peak {peak:.2f} GiB (updates 3-{updates}), {updates} updates in "
             f"{train_s:.1f} s, {len(syncs)} host syncs in one update; evaluate() on the EMA "
             f"weights, 2 batches of {AF_VAL_B}: mAP {result['map']:.6f} in {eval_s:.1f} s; "
             f"launches {launches}; nms_greedy at {len(rec['nms_greedy'])} candidate sets: "
@@ -2981,9 +3051,10 @@ def af_training(name, card, tmp, val_dirs):
     return launches, out, trainer.ckpt_dir, rec["nms_greedy"][0]
 
 
-def af_card_vs_cpu(name, card):
+def af_card_vs_cpu(name, card, hyp=None):
     """One update at 256 px, B=4 x accumulate 2, warmup active, on the card
-    and on the CPU from the same weights and batch."""
+    and on the CPU from the same weights and batch, the loss built from
+    ``hyp``."""
     from yoloseries_tpu_torch.families import get_family
     from yoloseries_tpu_torch.models import create_model
     from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
@@ -2999,7 +3070,7 @@ def af_card_vs_cpu(name, card):
         ann[b, :n, 4] = rng.integers(0, 80, n)
         ann[b, :n, 5] = b
     sd = create_model(name, num_class=80, device="cpu", seed=1).state_dict()
-    loss_fn, bal = get_family(name).make_loss({}, 80, (256, 256))
+    loss_fn, bal = get_family(name).make_loss(hyp or {}, 80, (256, 256))
     cfg = OptimizerConfig(batch_size=4, steps_per_epoch=1, warmup_steps_override=100)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -3124,6 +3195,211 @@ def phase_anchor_free(card):
     return out
 
 
+# ---------------------------- phase 13: YOLOv7, RetinaNet (+experiment), FCOS
+
+LF_MODELS = ("yolov7", "retinanet", "retinanet_experiment", "fcos", "fcos_cspnet")
+LF_SERVED = ("yolov7", "retinanet", "fcos")  # served, trained and validated
+LF_UPDATES = 3  # one-update epochs of the presets' batch
+# the preset's own IoU loss: the family's default CIoU in delta space
+# divides by the predicted dw, dh unclamped, as the reference does
+LF_LOSS_HYP = {"retinanet": {"iou_type": "iou"}}
+
+
+def lf_output_convs(model):
+    """(conv, std, bias) of each output conv of YOLOv7 (the detect convs),
+    RetinaNet (the towers' output convs) and FCOS (cls, ctr, reg)."""
+    if hasattr(model, "detect"):
+        return [(getattr(model.detect, f"detect_{s}"), 1.5, 0.0) for s in "sml"]
+    if hasattr(model, "classification"):
+        return [(model.classification.output, 1.5, 0.0), (model.regression.output, 0.5, 0.0)]
+    head = model.head
+    return [(head.cls_out_layer, 1.5, 0.0), (head.ctr_out_layer, 1.5, 0.0),
+            (head.reg_out_layer, 0.5, 1.0)]
+
+
+def widen_outputs(model, img):
+    """Random weights put every score at the prior (YOLOv7 ~1e-3, the focal
+    prior 0.01): scale each output conv so that its raw output has ``std``
+    on ``img`` (forward hooks read it), with the bias given: scores and
+    classes spread as a trained head's do. RetinaNet's classification
+    tower has the focal prior on all five biases (as JAX initializes it),
+    which leaves its ReLUs dead; those go to 0 too. FCOS's regression
+    starts at 1 stride a side (it is ReLU'd)."""
+    convs = lf_output_convs(model)
+    raw = {}
+    hooks = [conv.register_forward_hook(lambda m, i, o: raw.setdefault(m, []).append(o))
+             for conv, _, _ in convs]
+    with torch.no_grad():
+        if hasattr(model, "classification"):
+            for conv in model.classification.children():
+                conv.bias.zero_()
+        for conv, _, _ in convs:
+            conv.bias.zero_()
+        model(img)
+        for h in hooks:
+            h.remove()
+        for conv, std, bias in convs:
+            now = torch.cat([o.float().flatten() for o in raw[conv]]).std()
+            conv.weight.mul_(std / now)
+            conv.bias.fill_(bias)
+
+
+def flat_maps(out):
+    """A model's raw outputs as a flat list of tensors (RetinaNet's first
+    two, FCOS's three lists of levels)."""
+    if torch.is_tensor(out):
+        return [out]
+    return [t for o in out for t in flat_maps(o)]
+
+
+def lf_models(card, calib):
+    """Every new name at 640, nc=80, seeded, output convs widened: raw maps
+    card vs CPU at B=1 (the largest difference over the map's scale),
+    protocol img/s at B=64 (the first call apart). Returns the launches and
+    the served models."""
+    from yoloseries_tpu_torch.models import create_model
+
+    launches, keep, out = {}, {}, {}
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randint(0, 256, (1, 3, KNOB_HW, KNOB_HW), generator=gen).float() / 255
+    img = knob_images(21, KNOB_B["protocol"])
+    for name in LF_MODELS:
+        model = create_model(name, num_class=80, device="cpu", seed=0).cuda()
+        widen_outputs(model.eval(), calib)
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.no_grad():
+            ref = flat_maps(cpu_twin(model)(x)[:2] if name.startswith("retinanet")
+                            else cpu_twin(model)(x))
+            got = flat_maps(model(x.cuda())[:2] if name.startswith("retinanet")
+                            else model(x.cuda()))
+        err = max(float((g_.cpu() - r).abs().max()) / max(1.0, float(r.abs().max()))
+                  for g_, r in zip(got, ref))
+        ev = evaluator(model, EvalConfig(**PROTOCOL), name=name)
+        with record_nms_inputs() as rec:
+            ev(img[:2])
+        bad, calls = twin_mismatches(rec)
+        torch.cuda.synchronize()
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        first, best, _ = timed_calls(lambda: ev(img), n=2)
+        path = read_counters()
+        add_launches(launches, path)
+        out[name] = {"params": n_params, "raw_err": err, "img_per_s": len(img) / best * 1e3,
+                     "first_ms": first, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  {name}: {n_params} params; raw maps card vs CPU at B=1 max abs diff over the "
+            f"map's scale {err:.3e} (tolerance {MODEL_TOL}); protocol B=64 "
+            f"{len(img) / best * 1e3:.1f} img/s ({best:.1f} ms, best of 2), first call "
+            f"{first:.1f} ms, peak {out[name]['peak_gib']:.2f} GiB; launches {path}; {calls} "
+            f"NMS calls against the twins: {bad} mismatches [{card}]")
+        if not err <= MODEL_TOL:
+            fail(f"{name}: card and CPU raw maps disagree")
+        if path["nms_greedy"] == 0 or bad:
+            fail(f"{name}: protocol B=64 did not launch nms_greedy, or a twin mismatch")
+        if name in LF_SERVED:
+            keep[name] = model
+        else:
+            del model, ev
+            torch.cuda.empty_cache()
+    return launches, keep, out
+
+
+def yolov7_fold_check(model, card):
+    """YOLOv7 folded (conv+BN, then RepConv to its deploy form) against the
+    unfolded model: raw maps at B=2 and the protocol detections at B=8."""
+    from yoloseries_tpu_torch.nn.deploy import fold_conv_bn, fold_repconv
+
+    img = knob_images(24, 8)
+    x = torch.from_numpy(img[:2]).cuda().permute(0, 3, 1, 2).float() / 255
+    ev = evaluator(model, EvalConfig(**PROTOCOL), name="yolov7")
+    with torch.no_grad():
+        ref_maps, ref = model(x), ev(img)
+        folded = fold_repconv(fold_conv_bn(cpu_twin(model))).cuda().eval()
+        got_maps = folded(x)
+    got = evaluator(folded, EvalConfig(**PROTOCOL), name="yolov7")(img)
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(got_maps, ref_maps))
+    share, n = matched_share(got, ref, 1e-4, DETECT_BOX_TOL)
+    log(f"  yolov7 folded (conv+BN, RepConv deploy) vs unfolded: raw maps {err:.3e} of their "
+        f"scale (tolerance {FOLD_TOL}), protocol B=8 detections {share * 100:.2f}% of {n} "
+        f"matched (conf 1e-4, box {DETECT_BOX_TOL} px; need >= {FOLD_MATCH * 100:.0f}%) "
+        f"[{card}]")
+    if not (err <= FOLD_TOL and n and share >= FOLD_MATCH):
+        fail("yolov7: the folded model disagrees with the unfolded one")
+    return {"raw_err": err, "matched": share, "detections": n}
+
+
+def phase_last_families(card):
+    """Phase 13: YOLOv7, RetinaNet (+experiment) and FCOS (+CSPNet) (see
+    the module docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # cuDNN's heuristics, not its autotuning: each new shape's first call
+    # took 8-40 s (measured on one H100), 180 s of the phase's 475, and
+    # the script must stay inside its limit
+    torch.backends.cudnn.benchmark = False
+    launches, out, seconds, kernel_rows = {}, {}, {}, {}
+    gen = torch.Generator().manual_seed(0)
+    calib = (torch.randint(0, 256, (2, 3, KNOB_HW // 2, KNOB_HW // 2), generator=gen).float()
+             / 255).cuda()
+
+    def part(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        seconds[label] = time.perf_counter() - t0
+        log(f"  ({label}: {seconds[label]:.1f} s)")
+        return result
+
+    path, served, out["models"] = part("models", lf_models, card, calib)
+    add_launches(launches, path)
+    out["yolov7 fold"] = part("yolov7 fold", yolov7_fold_check, served["yolov7"], card)
+    for name in LF_SERVED:
+        path, rows, out[f"{name} serving"] = part(f"{name} serving", af_serving, served[name],
+                                                  name, card)
+        add_launches(launches, path)
+        for label, (kernel, row) in rows.items():
+            kernel_rows.setdefault(kernel, {})[label] = row
+    del served
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        val_dirs = synthetic_folder(tmp / "val", 2 * AF_VAL_B, seed=32)
+        for name in LF_SERVED:
+            path, out[f"{name} training"], ckpt, captured = part(
+                f"{name} training", af_training, name, card, tmp / name, val_dirs,
+                updates=LF_UPDATES)
+            add_launches(launches, path)
+            kernel_rows["nms_greedy"][f"{name} evaluate()"] = kernel_at(
+                "nms_greedy", captured, f"{name} evaluate()", path["nms_greedy"], card)
+            torch.cuda.empty_cache()
+            path, out[f"{name} entry points"] = part(f"{name} entry points", af_entry_points,
+                                                     name, ckpt, val_dirs, tmp / name, card)
+            add_launches(launches, path)
+    for name in LF_SERVED:
+        out[f"{name} card vs CPU"] = part(f"{name} card vs CPU", af_card_vs_cpu, name, card,
+                                          hyp=LF_LOSS_HYP.get(name))
+    torch.backends.cudnn.benchmark = True
+    wall = time.perf_counter() - t_phase
+    log(f"last-families phase (cuDNN autotuning off): {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + f"); launches {launches} [{card}]")
+    out.update(launches=launches, seconds=seconds, phase_s=wall, kernels=kernel_rows)
+    return out
+
+
+def kernel_summary(rows):
+    """At most one summary per kernel of a phase's per-path rows: the paths,
+    the launches on them, the slowest device time and its bound."""
+    out = {}
+    for name, by_path in rows.items():
+        worst = max(by_path.values(), key=lambda r: r["ms"])
+        out[name] = {"paths": len(by_path), "launches": sum(r["launches"] for r in
+                                                            by_path.values()),
+                     "slowest": worst["shape"], "ms": worst["ms"],
+                     "device_ms": worst["device_ms"], "bound_ms": worst["bound_ms"]}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script drives the port on the card")
@@ -3191,6 +3467,16 @@ def main():
         row["launches"] += anchor_free["launches"].get(row["name"], 0)
         row["anchor_free"] = anchor_free["kernels"].get(row["name"], {})
     b1["anchor_free_phase"] = {k: v for k, v in anchor_free.items() if k != "kernels"}
+    log("== 13. the last families: YOLOv7, RetinaNet (+experiment), FCOS (+CSPNet), serving, "
+        "training, entry points")
+    last = phase_last_families(card)
+    # the full rows on a line of their own; the kernels line takes a summary
+    print(json.dumps({"last_families": {k: v for k, v in last.items()}},
+                     separators=(",", ":"), default=str))
+    summary = kernel_summary(last["kernels"])
+    for row in rows:
+        row["launches"] += last["launches"].get(row["name"], 0)
+        row["last_families"] = summary.get(row["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}, separators=(",", ":")))  # compact: ~20 KB
     print(card)

@@ -95,6 +95,27 @@ def test_from_hyp_matches_jax():
     assert positional.loss.num_class == 80 and positional.optim.steps_per_epoch == 1000
 
 
+
+@pytest.mark.parametrize("family", ["yolov7", "retinanet", "fcos", "yolox", "yolov8"])
+def test_family_presets_match_jax(family):
+    """The port's copy of each family preset reads as the JAX package's,
+    and the typed configs and the family's eval overrides agree."""
+    from yoloseries_tpu.families import get_family as jax_family
+    from yoloseries_tpu_torch.families import get_family
+
+    name = f"train_{family}.yaml"
+    hyp = load_hyp(PRESET.parent / name)
+    assert hyp == jax_load_hyp(ROOT / "yoloseries_tpu" / "configs" / "presets" / name)
+    got = TrainConfig.from_hyp(dict(hyp), num_class=80)
+    want = JaxTrainConfig.from_hyp(dict(hyp), num_class=80)
+    for sub in ("aug", "loss", "optim", "eval"):
+        a, b = _common(getattr(got, sub), getattr(want, sub))
+        assert a == b, sub
+    a, b = _common(get_family(family).apply_eval_overrides(got.eval, hyp),
+                   jax_family(family).apply_eval_overrides(want.eval, hyp))
+    assert a == b
+
+
 # ------------------------------------------------------------ weights
 
 @pytest.fixture(scope="module")

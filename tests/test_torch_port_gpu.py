@@ -1,7 +1,8 @@
 """Port kernels on the card: each CUDA kernel against its plain twin, index
 for index, the serving path through the kernels, the augmentation render on
-the card against the CPU's, byte for byte, and the YOLOv5 knobs (the conv+BN
-fold, the s2d stem, soft-NMS) on the card against the CPU.
+the card against the CPU's, byte for byte, the YOLOv5 knobs (the conv+BN
+fold, the s2d stem, soft-NMS) and every family's evaluator and update on the
+card against the CPU.
 
 Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
 card is visible (decided at run time, never at import). On a machine with a
@@ -463,6 +464,78 @@ def test_anchor_free_update_on_card_matches_cpu(cuda, name):
         out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
                          {k: p.detach().cpu() for k, p in state.model.named_parameters()})
     (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(m_gpu["tot_loss"] - m_cpu["tot_loss"]) <= 1e-3 * abs(m_cpu["tot_loss"])
+    assert m_gpu["tar_nums"] == m_cpu["tar_nums"]
+    for k, p in p_cpu.items():
+        assert float(((p_gpu[k] - p).abs() / p.abs().clamp_min(1.0)).max()) <= 1e-3, k
+
+
+@pytest.mark.parametrize("name", ["yolov7", "retinanet_experiment", "fcos"])
+def test_last_families_evaluator_on_card_matches_cpu(cuda, name):
+    """YOLOv7 (the v7 gate, the box filter), RetinaNet's experiment (merged
+    boxes written back) and FCOS (sqrt scores, the 301 merge gate) at 128 px:
+    raw maps (1e-3 of their scale) and the ``Evaluator`` at the protocol
+    config with the family's overrides (sorted confs 1e-4), card against
+    CPU."""
+    from yoloseries_tpu_torch.evaluation import EvalConfig, Evaluator
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    family = get_family(name)
+    hyp = {"min_prediction_box_wh": 2}
+    cfg = family.apply_eval_overrides(EvalConfig(conf_threshold=0.001, cls_threshold=0.001,
+                                                 iou_threshold=0.65, num_candidates=1024), hyp)
+    img = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    x = torch.from_numpy(img).permute(0, 3, 1, 2).float() / 255
+    maps, outs = [], []
+    for dev in ("cpu", cuda):
+        model = create_model(name, num_class=3, device="cpu", seed=1).to(dev)
+        with torch.no_grad():
+            out = model(x.to(dev))
+            if name.startswith("retinanet"):
+                out = out[:2]
+            elif name == "fcos":
+                out = [m for level_maps in out for m in level_maps]
+            maps.append([m.float().cpu() for m in out])
+        ev = Evaluator(model, family.make_decode(hyp, 3, (128, 128)), cfg,
+                       family.make_select(hyp, 3, (128, 128))(cfg), device=dev)
+        outs.append(ev(img).cpu())
+    for a, b in zip(*maps):
+        assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(a.abs().max()))
+    conf = [np.sort(o[..., 4].numpy(), axis=1) for o in outs]
+    assert (conf[0] > 0).any()
+    np.testing.assert_allclose(conf[1], conf[0], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["yolov7", "retinanet", "fcos"])
+def test_last_families_update_on_card_matches_cpu(cuda, name):
+    """One update (B=2 x accumulate 2) of the family's model and loss (OTA,
+    max-IoU anchors, FCOS's ranges) at 128 px on the card and on the CPU
+    from the same weights: tot_loss within 1e-3 relative, the positive
+    counts equal, every parameter within 1e-3 * max(1, |p|)."""
+    from yoloseries_tpu_torch.families import get_family
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = create_model(name, num_class=3, device="cpu", seed=0).state_dict()
+    loss_fn, bal = get_family(name).make_loss({"iou_type": "iou"} if name == "retinanet" else {},
+                                              3, (128, 128))
+    img, ann = _train_batch(4, 128, 3)
+    out = {}
+    for dev in ("cpu", cuda):
+        state = create_train_state(create_model(name, 3, device="cpu"),
+                                   OptimizerConfig(batch_size=2), balances=bal, state_dict=sd,
+                                   device=dev)
+        state, metrics = make_train_step(loss_fn, accumulate=2)(
+            state, {"img": img.to(dev), "ann": ann.to(dev)})
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert m_cpu["tar_nums"] > 0
     assert abs(m_gpu["tot_loss"] - m_cpu["tot_loss"]) <= 1e-3 * abs(m_cpu["tot_loss"])
     assert m_gpu["tar_nums"] == m_cpu["tar_nums"]
     for k, p in p_cpu.items():

@@ -10,12 +10,16 @@ package's trees in an ``.npz`` whose keys are ``params/...`` and
 ``batch_stats/...`` paths joined by ``/``. The class count comes from
 ``--name-path``, else ``--num-class``. Images are letterboxed on the host,
 run through ``Evaluator`` with the decode and the fused selection of the
-model's family (``families.py``: yolov5, yolox, yolov8) and class-aware NMS
+model's family (``families.py``: every family of the JAX package) and
+class-aware NMS
 on the card, and the detections, in original-image pixels, are written as
 JSON.
 
 Each conv+BN pair is folded into one biased conv before inference
-(``nn/deploy.py::fold_conv_bn``; ``--no-fuse`` keeps the BN passes).
+(``nn/deploy.py::fold_conv_bn``), and YOLOv7's RepConvs then into their
+deploy form (``fold_repconv``); ``--no-fuse`` keeps the BN passes and the
+three RepConv branches. A model without BN (FCOS's GroupNorm ResNet) has
+nothing to fold.
 ``--s2d-stem`` builds the space-to-depth stem (a checkpoint trained with
 ``s2d_stem: true``; YOLOv5 and YOLOX on the CSP trunk); ``--bf16`` computes
 in bfloat16. A flag the model has no knob for raises ``ValueError``. Not ported yet:
@@ -35,7 +39,7 @@ import torch
 from ..evaluation import EvalConfig, Evaluator
 from ..families import get_family
 from ..models import create_model
-from ..nn.deploy import fold_conv_bn
+from ..nn.deploy import fold_conv_bn, fold_repconv
 from ..utils.weights import state_dict_from_jax, unflatten_tree
 
 __all__ = ["detect_batch", "load_weights", "main"]
@@ -114,9 +118,12 @@ def main(argv=None):
         print(f"loaded checkpoint at step {step}")
     else:
         load_weights(model, args.weights)
-    if args.fuse:
+    if args.fuse and any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
         fold_conv_bn(model.eval())
         print("fused conv+bn for deploy (BN running stats folded into conv weights and biases)")
+        if getattr(model, "deploy", None) is False:  # YOLOv7's RepConvs
+            fold_repconv(model)
+            print("reparameterized RepConv branches for deploy")
     family = get_family(args.model)
     size = (args.input_size, args.input_size)
     cfg = family.apply_eval_overrides(EvalConfig(conf_threshold=args.conf,

@@ -1,3 +1,5 @@
+from .fcos import decode_fcos, decode_topk_fcos
+from .retinanet import decode_retinanet, decode_topk_retinanet
 from .select import topk_gather
 from .yolov5 import (
     EvalConfig,
@@ -14,6 +16,10 @@ from .yolox import decode_topk_yolox, decode_yolox
 __all__ = [
     "EvalConfig",
     "Evaluator",
+    "decode_fcos",
+    "decode_retinanet",
+    "decode_topk_fcos",
+    "decode_topk_retinanet",
     "decode_topk_yolov5",
     "decode_topk_yolov8",
     "decode_topk_yolox",

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.anchors import YOLOV5_ANCHORS, make_grid
-from ..ops.nms import nms_candidates, postprocess_detections
+from ..ops.nms import candidate_gate, nms_candidates, postprocess_detections
 
 __all__ = [
     "decode_yolov5",
@@ -62,12 +62,13 @@ def decode_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, strides=(8, 16, 32),
 
 def decode_topk_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, k=512,
                        conf_threshold=0.25, cls_threshold=0.25,
-                       strides=(8, 16, 32), select="auto"):
+                       strides=(8, 16, 32), select="auto", conf_gate="v5"):
     """Fused candidate selection + sparse decode.
 
-    The score ``sigmoid(obj) * sigmoid(max cls)`` is gated (obj >= conf,
-    score > cls_thr) and taken on the raw maps; only the K winners are
-    decoded. ``select``:
+    The score ``sigmoid(obj) * sigmoid(max cls)`` is gated (``conf_gate``
+    "v5": obj >= conf, score > cls_thr; "v7": score >= conf, score >=
+    cls_thr) and taken on the raw maps; only the K winners are decoded.
+    ``select``:
     * "topk": per-stage score planes, one stable global top-k, sparse row
       gathers of the winners,
     * "sort": dense decode of six thin planes and one stable descending sort,
@@ -97,7 +98,7 @@ def decode_topk_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, k=512,
             obj = p[..., 4]
             cls_conf, cls_id = p[..., 5:].amax(dim=-1), p[..., 5:].argmax(dim=-1)
             score = obj * cls_conf
-            valid = (obj >= conf_threshold) & (score > cls_threshold)
+            valid = candidate_gate(obj, score, conf_threshold, cls_threshold, conf_gate)
             score = torch.where(valid, score, 0.0)
             grid = torch.from_numpy(make_grid(h, w)).to(p.device)
             anchor = torch.from_numpy(anchors_np[si]).to(p.device)
@@ -138,7 +139,7 @@ def decode_topk_yolov5(stage_preds, anchors=YOLOV5_ANCHORS, k=512,
         p = rows.reshape(b, ns, no)
         obj = torch.sigmoid(p[..., 4])
         cls_conf = obj * torch.sigmoid(p[..., 5:].amax(dim=-1))
-        valid = (obj >= conf_threshold) & (cls_conf > cls_threshold)
+        valid = candidate_gate(obj, cls_conf, conf_threshold, cls_threshold, conf_gate)
         stage_scores.append(torch.where(valid, cls_conf, 0.0))
         stage_rows.append(p)
         # decode constants per flat index ((y*W + x)*A + a): grid x, grid y,
@@ -209,6 +210,14 @@ class EvalConfig:
     merge_write_boxes: bool = False
     # the merge runs only where 1 < candidates < this (fcos: 301)
     merge_gate_max: int = 3000
+    # family quirks (``Family.eval_overrides``): fcos reports sqrt of the
+    # score (ctr * cls); yolov7 and fcos zero detections whose width or
+    # height is not strictly above ``min_box_wh`` (None: off), after NMS;
+    # the candidate gate is "v5" (obj >= conf, then obj*cls > cls_thr) but
+    # "v7" for yolov7 (obj*cls >= conf, then obj*cls >= cls_thr)
+    conf_sqrt: bool = False
+    min_box_wh: float | None = None
+    conf_gate: str = "v5"
 
 
 def yolov5_decode_fn():
@@ -221,6 +230,7 @@ def yolov5_select_fn(cfg: EvalConfig):
     return lambda preds: decode_topk_yolov5(
         preds, YOLOV5_ANCHORS, k=cfg.num_candidates,
         conf_threshold=cfg.conf_threshold, cls_threshold=cfg.cls_threshold,
+        conf_gate=cfg.conf_gate,
     )
 
 
@@ -297,10 +307,25 @@ class Evaluator:
                   nms_mode=cfg.nms_mode, merge_write_boxes=cfg.merge_write_boxes,
                   merge_gate_max=cfg.merge_gate_max)
         if self.select_fn is not None:
-            return nms_candidates(*branch, **kw)
-        return postprocess_detections(branch, conf_threshold=cfg.conf_threshold,
-                                      cls_threshold=cfg.cls_threshold,
-                                      num_candidates=cfg.num_candidates, **kw)
+            return self._finalize(nms_candidates(*branch, **kw))
+        return self._finalize(postprocess_detections(
+            branch, conf_threshold=cfg.conf_threshold, cls_threshold=cfg.cls_threshold,
+            num_candidates=cfg.num_candidates, conf_gate=cfg.conf_gate, **kw))
+
+    def _finalize(self, out):
+        """The family's post-NMS quirks on (B, max_keep, 6) rows: conf 0
+        where w or h is not strictly above ``min_box_wh``, then the square
+        root of conf with ``conf_sqrt``."""
+        if self.cfg.min_box_wh is None and not self.cfg.conf_sqrt:
+            return out
+        conf = out[..., 4]
+        if self.cfg.min_box_wh is not None:
+            m = self.cfg.min_box_wh
+            big = ((out[..., 2] - out[..., 0]) > m) & ((out[..., 3] - out[..., 1]) > m)
+            conf = torch.where(big, conf, 0.0)
+        if self.cfg.conf_sqrt:
+            conf = torch.sqrt(conf)
+        return torch.cat([out[..., :4], conf[..., None], out[..., 5:]], dim=-1)
 
     def _prepare(self, img) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float, numpy or tensor -> (B, 3, H, W) f32

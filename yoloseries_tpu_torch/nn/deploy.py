@@ -1,4 +1,5 @@
-"""Deploy-time folds: conv+BN fusion and the space-to-depth stem.
+"""Deploy-time folds: conv+BN fusion, RepConv's reparameterization and the
+space-to-depth stem.
 
 Counterpart of ``yoloseries_tpu/nn/deploy.py`` (``fold_conv_bn``, the s2d
 stem maps). The JAX package folds parameter trees and keeps each BN as
@@ -8,8 +9,16 @@ new conv bias, and the BN module becomes ``nn.Identity``, so the BN pass is
 gone from the forward. Both compute the same function. ``BottleneckCSP``'s
 BN over the concat has no conv directly before it and stays, as in JAX.
 The heads' biased 1x1 convs (YOLOv5's detect convs, YOLOX's cls/reg/cof,
-YOLOv8's box and cls outputs) have no BN and are left as they are.
-RepConv's fold belongs to YOLOv7 (ROADMAP A9).
+YOLOv8's box and cls outputs) have no BN and are left as they are, and so
+are the BNs that no ``ConvBnAct`` wraps: RetinaNet's ResNet and RepConv's
+branches, as the JAX fold leaves every BN that is not a ``bn`` beside a
+``conv``. FCOS's GroupNorms hold no running statistics and stay.
+
+``fold_repconv`` (after ``fold_conv_bn``, as the JAX package's detect
+runs them) turns every training-form ``RepConv`` into its deploy form: the
+three branches' BNs folded as above (``_fold_one`` of the JAX package), the
+1x1 kernel padded to the centre tap, the identity BN folded over an
+identity kernel, summed into one biased conv ``rbr_reparam``.
 
 The stem maps work on ``state_dict``s (YOLOv5's, or YOLOX's with the same
 trunk under ``neck.``) and the OIHW kernel layout: the 6x6/2 stem conv over
@@ -23,10 +32,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import BatchNorm, ConvBnAct
+import torch.nn.functional as F
+
+from .layers import BatchNorm, ConvBnAct, RepConv
 
 __all__ = [
     "fold_conv_bn",
+    "fold_repconv",
     "fold_stem_from_s2d",
     "fold_stem_to_s2d",
     "stem_kernel_from_s2d",
@@ -50,6 +62,44 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
         conv.weight.mul_(factor[:, None, None, None])
         conv.bias = nn.Parameter(bn.bias - bn.running_mean * factor)
         module.bn = nn.Identity()
+    return model
+
+
+def _fold_one(weight, bn):
+    """(OIHW kernel, eval-mode BN) -> the folded (kernel, bias)."""
+    factor = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    return weight * factor[:, None, None, None], bn.bias - bn.running_mean * factor
+
+
+@torch.no_grad()
+def fold_repconv(model: nn.Module) -> nn.Module:
+    """Replace every training-form ``RepConv`` of ``model`` by its deploy
+    form (``deploy=True``) carrying the folded ``rbr_reparam`` weight and
+    bias, in place; a model that has one gets ``deploy = True`` too, so its
+    ``state_dict`` is that of the model built with ``deploy=True``. Returns
+    ``model``, to be used in eval mode only."""
+    for parent in list(model.modules()):
+        for name, rep in list(parent.named_children()):
+            if not isinstance(rep, RepConv) or rep.deploy:
+                continue
+            dense, one = rep.rbr_dense[0], rep.rbr_1x1[0]
+            k3, b3 = _fold_one(dense.weight, rep.rbr_dense[1])
+            k1, b1 = _fold_one(one.weight, rep.rbr_1x1[1])
+            pad = dense.kernel_size[0] // 2
+            kernel, bias = k3 + F.pad(k1, (pad, pad, pad, pad)), b3 + b1
+            if rep.rbr_identity is not None:
+                ident = torch.zeros_like(kernel)
+                per_group = kernel.shape[1]
+                for c in range(kernel.shape[0]):
+                    ident[c, c % per_group, pad, pad] = 1.0
+                ki, bi = _fold_one(ident, rep.rbr_identity)
+                kernel, bias = kernel + ki, bias + bi
+            new = RepConv(dense.in_channels, dense.out_channels, dense.kernel_size[0],
+                          dense.stride[0], dense.groups, act=rep.act, deploy=True)
+            new.rbr_reparam.weight.copy_(kernel)
+            new.rbr_reparam.bias.copy_(bias)
+            setattr(parent, name, new.to(kernel.device).train(rep.training))
+            model.deploy = True
     return model
 
 

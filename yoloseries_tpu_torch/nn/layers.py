@@ -1,4 +1,4 @@
-"""Layer blocks of the YOLOv5, YOLOX and YOLOv8 families, NCHW.
+"""Layer blocks of the detector families, NCHW.
 
 Counterpart of ``yoloseries_tpu/nn/layers.py``. Submodule names follow the
 reference's ``state_dict`` keys (``conv``/``bn``, ``cba1..3``,
@@ -52,6 +52,12 @@ __all__ = [
     "Focus",
     "SPP",
     "FastSPP",
+    "CSPCSPP",
+    "RepConv",
+    "ImplicitAdd",
+    "ImplicitMul",
+    "Scale",
+    "GroupNorm",
     "DetectHead",
     "detect_bias_init",
     "remat_context",
@@ -103,7 +109,9 @@ def kaiming_fan_out_(weight: torch.Tensor, generator: torch.Generator | None):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d with eps 1e-3, momentum 0.03 and the reference's eval
-    arithmetic (``x * mul + shift``)."""
+    arithmetic (``x * mul + shift``). In training, f32 input takes torch's
+    fused kernel (two-pass batch variance), low-precision input the
+    one-pass form of the JAX ``TorchBatchNorm`` (``_one_pass``)."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__(channels, eps=eps, momentum=0.03)
@@ -118,15 +126,18 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return self._affine(x, self.running_mean, self.running_var)
         recompute = _RECOMPUTING.get()
-        if x.dtype == torch.float32:
-            if not recompute:
-                return super().forward(x)
-            # the same kernel on copies of the running stats: the recompute
-            # sees the first forward's output and the stats stay put
-            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
-                                self.weight, self.bias, True, self.momentum, self.eps)
-        # low-precision compute: batch statistics in f32 (one-pass variance,
-        # as the JAX TorchBatchNorm), the affine in f32
+        if x.dtype != torch.float32:
+            return self._one_pass(x, recompute)
+        if not recompute:
+            return super().forward(x)
+        # the same kernel on copies of the running stats: the recompute
+        # sees the first forward's output and the stats stay put
+        return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                            self.weight, self.bias, True, self.momentum, self.eps)
+
+    def _one_pass(self, x: torch.Tensor, recompute: bool) -> torch.Tensor:
+        """Training: batch statistics in f32 (one-pass variance, as the JAX
+        TorchBatchNorm), the affine in f32."""
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
@@ -341,6 +352,119 @@ class FastSPP(nn.Module):
         x3 = max_pool_same(x2, self.kernel)
         x4 = max_pool_same(x3, self.kernel)
         return self.cba2(torch.cat([x, x2, x3, x4], dim=1))
+
+
+class CSPCSPP(nn.Module):
+    """YOLOv7's CSP-wrapped 5/9/13 SPP at half the input width; convs
+    ``cba1..cba7`` as in the reference (JAX ``cv1..cv7``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernels=(5, 9, 13),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        mid, g = in_channels // 2, generator
+        self.cba1 = ConvBnAct(in_channels, mid, 1, padding=0, generator=g)
+        self.cba3 = ConvBnAct(mid, mid, 3, generator=g)
+        self.cba4 = ConvBnAct(mid, mid, 1, padding=0, generator=g)
+        self.cba5 = ConvBnAct((len(kernels) + 1) * mid, mid, 1, padding=0, generator=g)
+        self.cba6 = ConvBnAct(mid, mid, 3, generator=g)
+        self.cba2 = ConvBnAct(in_channels, mid, 1, padding=0, generator=g)
+        self.cba7 = ConvBnAct(2 * mid, out_channels, 1, padding=0, generator=g)
+        self.kernels = tuple(kernels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p1 = self.cba4(self.cba3(self.cba1(x)))
+        p1 = torch.cat([p1] + [max_pool_same(p1, k) for k in self.kernels], dim=1)
+        p1 = self.cba6(self.cba5(p1))
+        return self.cba7(torch.cat([p1, self.cba2(x)], dim=1))
+
+
+class RepConv(nn.Module):
+    """RepVGG conv with SiLU. Training form: ``rbr_dense`` (k x k conv + BN),
+    ``rbr_1x1`` (1x1 conv + BN) and, when in == out and stride 1,
+    ``rbr_identity`` (BN), summed. ``deploy=True``: one biased k x k conv
+    ``rbr_reparam`` whose weights ``nn/deploy.py::fold_repconv`` makes from
+    the three branches."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, stride: int = 1,
+                 groups: int = 1, act: bool = True, deploy: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        pad = kernel // 2
+        self.act, self.deploy = act, deploy
+        if deploy:
+            self.rbr_reparam = Conv2d(in_channels, out_channels, kernel, stride, pad,
+                                      groups=groups)
+            kaiming_fan_out_(self.rbr_reparam.weight, generator)
+            nn.init.zeros_(self.rbr_reparam.bias)
+            return
+        dense = Conv2d(in_channels, out_channels, kernel, stride, pad, groups=groups, bias=False)
+        one = Conv2d(in_channels, out_channels, 1, stride, 0, groups=groups, bias=False)
+        kaiming_fan_out_(dense.weight, generator)
+        kaiming_fan_out_(one.weight, generator)
+        self.rbr_dense = nn.Sequential(dense, BatchNorm(out_channels))
+        self.rbr_1x1 = nn.Sequential(one, BatchNorm(out_channels))
+        self.rbr_identity = (BatchNorm(in_channels)
+                             if in_channels == out_channels and stride == 1 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            y = self.rbr_reparam(x)
+        else:  # the BNs return f32: one rounding after the activation
+            y = self.rbr_dense(x) + self.rbr_1x1(x)
+            if self.rbr_identity is not None:
+                y = y + self.rbr_identity(x)
+        return (F.silu(y) if self.act else y).to(x.dtype)
+
+
+class ImplicitAdd(nn.Module):
+    """YOLOR's learned additive prior: an f32 (1, C, 1, 1) parameter
+    ``implicit`` drawn from N(0, 0.02)."""
+
+    def __init__(self, channels: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.implicit = nn.Parameter(torch.empty(1, channels, 1, 1))
+        with torch.no_grad():
+            self.implicit.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.implicit.to(x.dtype)
+
+
+class ImplicitMul(nn.Module):
+    """YOLOR's learned multiplicative prior: ``implicit`` drawn from
+    1 + N(0, 0.02)."""
+
+    def __init__(self, channels: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.implicit = nn.Parameter(torch.empty(1, channels, 1, 1))
+        with torch.no_grad():
+            self.implicit.normal_(0.0, 0.02, generator=generator).add_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.implicit.to(x.dtype)
+
+
+class Scale(nn.Module):
+    """A learnable f32 scalar ``scale`` (FCOS's per-level regression scale)."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (32 groups, eps 1e-5, as the JAX package sets them)
+    computed in f32 and returned in the input's dtype."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5):
+        super().__init__(groups, channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def detect_bias_init(stride: float, num_class: int, num_anchor: int) -> torch.Tensor:

@@ -23,6 +23,7 @@ from .iou import pairwise_iou
 
 __all__ = [
     "CLASS_OFFSET",
+    "candidate_gate",
     "greedy_nms",
     "stable_topk",
     "select_topk_candidates",
@@ -55,14 +56,27 @@ def select_topk_candidates(boxes, scores, classes, k: int):
     return boxes[idx], scores_top, classes[idx]
 
 
+def candidate_gate(obj, score, conf_threshold, cls_threshold, conf_gate="v5"):
+    """The candidates a family's evaluator keeps: "v5" obj >= conf, then
+    score = obj * cls_max > cls_thr; "v7" (YOLOv7's) score >= conf, then
+    score >= cls_thr."""
+    if conf_gate == "v7":
+        return (score >= conf_threshold) & (score >= cls_threshold)
+    if conf_gate != "v5":
+        raise ValueError(f"conf_gate {conf_gate!r}: 'v5' or 'v7'")
+    return (obj >= conf_threshold) & (score > cls_threshold)
+
+
 def postprocess_detections(pred, conf_threshold, cls_threshold, iou_threshold,
                            num_candidates=2048, max_keep=300, class_aware=True,
                            merge_boxes=True, nms_mode="greedy", merge_write_boxes=False,
-                           merge_gate_max=3000):
+                           merge_gate_max=3000, conf_gate="v5"):
     """(N, 5+nc) or (B, N, 5+nc) decoded predictions [cx, cy, w, h, obj,
     cls...] (sigmoided, input pixels) -> (..., max_keep, 6).
 
-    Single-label gate: obj >= conf, then obj * cls_max > cls_thr."""
+    Single-label gate, ``conf_gate`` "v5": obj >= conf, then obj * cls_max >
+    cls_thr; "v7" (YOLOv7's evaluator): obj * cls_max >= conf, then
+    obj * cls_max >= cls_thr."""
     single = pred.dim() == 2
     if single:
         pred = pred[None]
@@ -73,7 +87,7 @@ def postprocess_detections(pred, conf_threshold, cls_threshold, iou_threshold,
 
     cls_conf = cls_probs.amax(dim=-1)
     cls_id = cls_probs.argmax(dim=-1).float()  # first maximal class
-    valid = (obj >= conf_threshold) & (cls_conf > cls_threshold)
+    valid = candidate_gate(obj, cls_conf, conf_threshold, cls_threshold, conf_gate)
     score = torch.where(valid, cls_conf, 0.0)
     score_k, idx = stable_topk(score, min(num_candidates, score.shape[-1]))
     boxes_k = torch.take_along_dim(boxes, idx[..., None], dim=1)

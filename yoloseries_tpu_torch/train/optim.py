@@ -2,9 +2,11 @@
 clipping; a plain PyTorch counterpart of ``yoloseries_tpu/train/optim.py``
 (optax ``chain(clip_by_global_norm, multi_transform({...}))``).
 
-* Groups by module type: BatchNorm scales go to ``"other"``, every
-  ``.bias`` (BatchNorm and the detect convs alike) to ``"bias"``, conv
-  kernels to ``"weight"``, the only group with weight decay.
+* Groups as the JAX package's leaf names sort them: the scales of
+  BatchNorm and GroupNorm and FCOS's ``Scale`` (flax leaves ``scale``) go
+  to ``"other"``, every ``.bias`` (norms and biased convs alike) to
+  ``"bias"``, conv kernels and YOLOv7's implicit priors to ``"weight"``, the
+  only group with weight decay.
 * Clipping as optax's ``clip_by_global_norm``: no eps, no clamp; the
   gradient is scaled by ``max_norm / norm`` only when ``norm >= max_norm``.
 * Per group and update: weight decay added to the clipped gradient, then
@@ -126,11 +128,13 @@ def _momentum_schedule(cfg: OptimizerConfig):
 
 
 def param_group_label(module: nn.Module, name: str) -> str:
-    """'bias' for every bias, 'other' for a BatchNorm scale, 'weight' for
-    the rest (conv kernels)."""
+    """'bias' for every bias, 'other' for a BatchNorm or GroupNorm scale and
+    a ``Scale``'s scalar, 'weight' for the rest (conv kernels, implicit
+    priors)."""
     if name == "bias":
         return "bias"
-    if isinstance(module, nn.modules.batchnorm._BatchNorm) and name == "weight":
+    if name == "scale" or (name == "weight" and isinstance(
+            module, (nn.modules.batchnorm._BatchNorm, nn.GroupNorm))):
         return "other"
     return "weight"
 
