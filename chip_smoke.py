@@ -157,8 +157,29 @@ Phases (any failure exits non-zero and prints no result line):
    share; ``cli/val.py`` and ``cli/detect.py`` folded/``--no-fuse`` on the
    checkpoint; one update at 256 px card vs CPU (RetinaNet with its
    preset's IoU loss); its rows on a ``{"last_families": ...}`` line;
+14. the last modules, on yolov5s at 640 (nc=80, full width and depth,
+   seeded, detect convs widened): a reference ``save_model`` blob (raw
+   weights and a distinct EMA under DDP's ``module.`` prefix) through
+   ``cli/import_torch.py``, then ``cli/val.py --ckpt-dir`` (with
+   ``--plot-dir`` where matplotlib is installed) and ``--weights`` on 32
+   PNGs at B=16 (B1 at K=4096, held against its twin and timed at the
+   candidates): the same detections, bit for bit; ``cli/detect.py
+   --save-dir`` on 6 images, each drawing byte-identical to a CPU redraw of
+   the card's detections; ``val`` after the backend flags were put back to
+   PyTorch's defaults, which must set TF32 off again and detect the same;
+   ``cli/train.py`` under ``torch.distributed.run`` (this script re-run as
+   ``--ddp-worker``, one process a rank): every card of the call over NCCL,
+   then two gloo ranks sharing one card with the global batch and per
+   replica, 3 one-update epochs at 64 x 2 each without augmentation, ms per
+   update and each rank's peak, B1 in the ranks' ``evaluate()``, every
+   update of the global batch against the one-process run (the loss to
+   ``TRAIN_TOL``; the gradient norm too at update 1, later to
+   ``DIST_LATER_NORM_TOL``); the
+   ``Trainer`` with ``enable_tensorboard`` and ``enable_profiler: 2`` for 3
+   updates, the event file and the trace's kernel events present and 0
+   host syncs in an update; its rows on a ``{"dist_and_tools": ...}`` line;
 then one ``{"kernels": [...]}`` line, with a summary per kernel of phase
-13's rows.
+13's rows and phase 14's launches counted.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (cuDNN and
@@ -169,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import importlib.util
 import json
 import math
 import os
@@ -1093,15 +1115,28 @@ def step_syncs(trainer, host_batch, with_copy=False):
     """Where one update makes the host wait for the card
     (``torch.cuda.set_sync_debug_mode``: a warning per synchronizing call);
     ``with_copy``: the ``Trainer``'s copy of the batch (and its render) too."""
-    import traceback
-    import warnings
-
     step = trainer._step_fn_for(tuple(trainer.cfg.input_size))
     batch = None if with_copy else trainer._device_batch(host_batch)
     torch.cuda.synchronize()
+    with sync_notes() as where:
+        if with_copy:
+            batch = trainer._device_batch(host_batch)
+        trainer.state, _ = step(trainer.state, batch)
+    torch.cuda.synchronize()
+    return where
+
+
+@contextlib.contextmanager
+def sync_notes():
+    """Yield a list that collects, for every call inside that makes the host
+    wait for the card (``torch.cuda.set_sync_debug_mode``), the innermost
+    line of the port that made it."""
+    import traceback
+    import warnings
+
     where = []
 
-    def note(message, *args, **kwargs):  # the innermost line of the port that called
+    def note(message, *args, **kwargs):
         if "prototype feature" in str(message):  # said once when the mode is set
             return
         frames = [f for f in traceback.extract_stack()[:-1] if "yoloseries_tpu_torch" in f.filename]
@@ -1113,13 +1148,9 @@ def step_syncs(trainer, host_batch, with_copy=False):
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            if with_copy:
-                batch = trainer._device_batch(host_batch)
-            trainer.state, _ = step(trainer.state, batch)
+            yield where
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return where
 
 
 def h2d_ms(copy, n=3):
@@ -3094,6 +3125,20 @@ def af_card_vs_cpu(name, card, hyp=None):
     return {"loss_rel": rel, "param_rel": worst}
 
 
+@contextlib.contextmanager
+def caller_backend_flags():
+    """The backend flags as they were before an entry point set its numeric
+    mode (TF32 off, cuDNN autotuning on): phase 13 runs on cuDNN's
+    heuristics, and must go on doing so after ``val`` and ``detect``."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.benchmark) = saved
+
+
 def af_entry_points(name, ckpt_dir, val_dirs, tmp, card):
     """``cli/val.py`` (B1 at B=16, K=4096, held against its twin) and
     ``cli/detect.py --ckpt-dir`` folded and ``--no-fuse`` on the checkpoint
@@ -3103,7 +3148,7 @@ def af_entry_points(name, ckpt_dir, val_dirs, tmp, card):
 
     launches = {}
     zero_counters()
-    with record_nms_inputs() as rec:
+    with record_nms_inputs() as rec, caller_backend_flags():
         t0 = time.perf_counter()
         result = val_main(["--model", name, "--ckpt-dir", str(ckpt_dir), "--val-img-dir",
                            str(val_dirs[0]), "--val-lab-dir", str(val_dirs[1]), "--name-path",
@@ -3123,7 +3168,7 @@ def af_entry_points(name, ckpt_dir, val_dirs, tmp, card):
     runs = {}
     for label, flags in (("folded", []), ("no-fuse", ["--no-fuse"])):
         zero_counters()
-        with record_nms_inputs() as rec:
+        with record_nms_inputs() as rec, caller_backend_flags():
             runs[label] = detect_main(["--model", name, "--ckpt-dir", str(ckpt_dir), "--img-dir",
                                        str(few), "--name-path", str(val_dirs[2]), "--save-dir",
                                        str(tmp / f"detect_{label}"), "--device", "cuda", *flags])
@@ -3387,6 +3432,379 @@ def phase_last_families(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+DIST_UPDATES = 3  # each data-parallel run: one-update epochs of 64 x 2 (the same
+# count on every run: the schedule's warmup and decay follow the total)
+DIST_TIMEOUT_S = 240  # each torchrun launch
+# the gradient norm after update 1: one process against itself, run to run,
+# parted by up to 1.9e-3 at update 3 on an H100 80GB HBM3 at 700 W (the
+# autotuner's choices; the loss by 5e-6), while the fault this check exists
+# for (two ranks training on other images) moved it by 4.7-8%
+DIST_LATER_NORM_TOL = 1e-2
+NO_AUG = {f"data_aug_{k}_p": 0.0 for k in ("mosaic", "mixup", "prespective", "hsv", "cutout",
+                                          "fliplr")}
+
+
+def tools_blob(calib, path):
+    """The reference's ``save_model`` dict of a seeded yolov5s (nc=80, detect
+    convs widened on ``calib``): the EMA those weights, the raw model its
+    detect convs at 0.8, both under DDP's ``module.`` prefix. Returns the
+    EMA ``state_dict``."""
+    from yoloseries_tpu_torch.models import create_model
+
+    model = create_model("yolov5s", num_class=80, device="cpu", seed=0)
+    widen_head(model, calib)
+    ema = {k: v.clone() for k, v in model.state_dict().items()}
+    raw = {k: v * 0.8 if k.startswith("detect.") and k.endswith("weight") else v.clone()
+           for k, v in ema.items()}
+    torch.save({"model_state_dict": {f"module.{k}": v for k, v in raw.items()},
+                "ema": {f"module.{k}": v for k, v in ema.items()},
+                "hyp": {"batch_size": 64}, "step": 7}, path)
+    return ema
+
+
+def read_pickles(pkl_dir):
+    import pickle
+
+    with open(Path(pkl_dir) / "pred_bbox_640_yolov5s.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def same_detections(a, b) -> bool:
+    return len(a) == len(b) and all(x.shape == y.shape and np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def torchrun(nproc, cfg_path, tmp, backend=None):
+    """``nproc`` ranks of this script's ``--ddp-worker`` under torchrun
+    (``--standalone``: a rendezvous on a free local port); returns each
+    rank's result."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), str(Path(__file__).resolve()), "--ddp-worker",
+           str(cfg_path)]
+    if backend:
+        cmd.append(backend)
+    t0 = time.perf_counter()
+    # a session of its own, so that a hung launch is ended with every rank
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        stdout, stderr = proc.communicate()
+        log(stdout[-3000:], stderr[-6000:])
+        fail(f"torchrun of {nproc} rank(s) ({backend or 'nccl'}) passed {DIST_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(stdout[-3000:])
+        log(stderr[-6000:])
+        fail(f"torchrun of {nproc} rank(s) ({backend or 'nccl'}) exited {proc.returncode}")
+    out = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(nproc)]
+    for r in range(nproc):
+        (Path(tmp) / f"rank{r}.json").unlink()
+    return out, wall
+
+
+def ddp_worker(cfg_path, backend=None):
+    """One rank of phase 14's data-parallel runs: ``cli/train.py``'s main
+    under torchrun, a CUDA event at the end of every update, the launch
+    counters zeroed first, every B1 call of ``evaluate()`` recorded and held
+    against its twin after the run."""
+    import yoloseries_tpu_torch.train.trainer as trainer_mod
+    from yoloseries_tpu_torch.cli.train import main as train_main
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    rank = int(os.environ.get("RANK", "0"))
+    ends = []
+    make = trainer_mod.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(state, batch):
+            out = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            return out
+
+        return timed
+
+    trainer_mod.make_train_step = timed_make
+    if backend:  # gloo: NCCL refuses two ranks on one card; init_from_env keeps this group
+        torch.distributed.init_process_group(backend)
+    zero_counters()
+    with record_nms_inputs() as rec:
+        trainer = train_main(list(cfg["argv"]))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    bad, kept, live = greedy_mismatches(rec["nms_greedy"])
+    gaps = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    out = {"rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
+           "device": str(trainer.device), "updates": len(ends),
+           "ms_per_update": float(np.median(gaps)) if gaps else None,
+           "peak_gib": torch.cuda.max_memory_allocated(trainer.device) / 2**30,
+           "losses": [h["tot_loss"] for h in trainer.history],
+           "grad_norms": [h["grad_norm"] for h in trainer.history], "launches": launches,
+           "b1_mismatches": bad, "b1_kept": kept, "b1_live": live,
+           "map": None if trainer.last_eval is None else trainer.last_eval["map"]}
+    (Path(cfg["tmp"]) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dist_runs(card, tmp):
+    """Phase 14 (d): ``cli/train.py`` under torchrun on every card (NCCL),
+    then two ranks sharing one card over gloo, global batch and per
+    replica."""
+    train_dirs = synthetic_folder(tmp / "dist_train", TRAIN_BATCH * TRAIN_ACCUMULATE, seed=21)
+    val_dirs = synthetic_folder(tmp / "dist_val", TRAIN_BATCH, seed=22)
+
+    def argv(run, updates, per_replica, val, workers):
+        # every epoch closed, and the augmentation's probabilities at 0 for the
+        # batches made before the close (the loader's queue; host mosaics would
+        # set the pace)
+        hyp = {**train_hyp(updates), **NO_AUG, "validation_every": updates,
+               "num_workers": workers, "per_replica_bn": per_replica}
+        out = ["--model", "yolov5s", "--train-img-dir", str(train_dirs[0]), "--train-lab-dir",
+               str(train_dirs[1]), "--name-path", str(train_dirs[2]), "--output-dir",
+               str(tmp / run)]
+        if val:
+            out += ["--val-img-dir", str(val_dirs[0]), "--val-lab-dir", str(val_dirs[1])]
+        for k, v in hyp.items():
+            out += ["--set", f"{k}={json.dumps(v)}"]
+        return out
+
+    rows, launches = {}, {}
+    n_cards = torch.cuda.device_count()
+    runs = [("nccl", n_cards, None, argv("nccl", DIST_UPDATES, False, True, 8)),
+            ("gloo global batch", 2, "gloo", argv("gloo_global", DIST_UPDATES, False, True, 4)),
+            ("gloo per replica", 2, "gloo", argv("gloo_replica", DIST_UPDATES, True, False, 4))]
+    for label, nproc, backend, args in runs:
+        cfg_path = tmp / "worker.json"
+        cfg_path.write_text(json.dumps({"argv": args, "tmp": str(tmp)}))
+        ranks, wall = torchrun(nproc, cfg_path, tmp, backend)
+        for r in ranks:
+            add_launches(launches, r["launches"])
+            if r["b1_mismatches"] or any(not math.isfinite(x) for x in r["losses"]):
+                fail(f"{label} rank {r['rank']}: a B1 twin mismatch or a loss not finite")
+        if len({json.dumps(r["losses"]) for r in ranks}) != 1:
+            fail(f"{label}: the ranks logged different losses")
+        rows[label] = {"ranks": nproc, "wall_s": wall, "losses": ranks[0]["losses"],
+                       "grad_norms": ranks[0]["grad_norms"],
+                       "ms_per_update": [r["ms_per_update"] for r in ranks],
+                       "peak_gib": [r["peak_gib"] for r in ranks],
+                       "devices": [r["device"] for r in ranks],
+                       "map": ranks[0]["map"], "b1_launches": [r["launches"]["nms_greedy"]
+                                                              for r in ranks],
+                       "b1_live": [r["b1_live"] for r in ranks]}
+        log(f"  {label}: {nproc} rank(s) on {rows[label]['devices']}, {len(ranks[0]['losses'])} "
+            f"updates at {TRAIN_BATCH} x {TRAIN_ACCUMULATE}: ms per update "
+            f"{rows[label]['ms_per_update']}, peak GiB {rows[label]['peak_gib']}, losses "
+            f"{rows[label]['losses']}, gradient norms {rows[label]['grad_norms']}, mAP {rows[label]['map']}, B1 launches "
+            f"{rows[label]['b1_launches']} (0 mismatches), {wall:.1f} s of command [{card}]")
+    # every update against the run on every card (one process on one card):
+    # the same function of the same batches (the loader closes augmentation
+    # at a fixed batch, whatever the timing)
+    one, glob = rows["nccl"], rows["gloo global batch"]
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(glob[k], one[k])]
+           for k in ("losses", "grad_norms")}
+    log(f"  the global batch over 2 gloo ranks against {n_cards} rank(s), relative differences "
+        f"per update: tot_loss {rel['losses']} (each held to {TRAIN_TOL}), gradient norm "
+        f"{rel['grad_norms']} (update 1 held to {TRAIN_TOL}, later ones to "
+        f"{DIST_LATER_NORM_TOL}) [{card}]")
+    if (len(rel["losses"]) != DIST_UPDATES or max(rel["losses"]) > TRAIN_TOL
+            or rel["grad_norms"][0] > TRAIN_TOL or max(rel["grad_norms"]) > DIST_LATER_NORM_TOL):
+        fail(f"the 2-rank global-batch run disagrees with the {n_cards}-rank run")
+    if rows["nccl"]["b1_launches"][0] == 0 or rows["gloo global batch"]["b1_launches"][0] == 0:
+        fail("evaluate() launched no B1 on a data-parallel run")
+    rows["global_vs_one_rel"] = rel
+    rows["nccl_across_cards"] = ("measured" if n_cards > 1 else
+                                 "not measured: the call had one card")
+    return rows, launches
+
+
+def observability_run(card, tmp, phase8_ms):
+    """Phase 14 (e): the ``Trainer`` with ``enable_tensorboard`` and
+    ``enable_profiler: 2`` for 3 updates at 64 x 2: the event file and the
+    trace exist, each update's step makes no host sync (the scalars are
+    read at the epoch ends, TensorBoard's flush points)."""
+    from yoloseries_tpu_torch.configs import TrainConfig
+    from yoloseries_tpu_torch.train import Trainer
+
+    train_dirs = synthetic_folder(tmp / "obs", TRAIN_BATCH * TRAIN_ACCUMULATE, seed=23)
+    # without augmentation: the loader's first batches, made before the close,
+    # would otherwise hold the updates to the host's mosaics
+    hyp = {**train_hyp(3), **NO_AUG, "enable_tensorboard": True, "enable_profiler": 2}
+    cfg = TrainConfig.from_hyp(hyp, num_class=80, model="yolov5s", output_dir=str(tmp / "obs_run"))
+    trainer = Trainer(cfg, train_dirs[:2], names_path=train_dirs[2], log_fn=lambda *a: None)
+    size = tuple(cfg.input_size)
+    inner = trainer._step_fn_for(size)
+    ends, syncs = [], []
+
+    def step(state, batch):
+        with sync_notes() as where:
+            out = inner(state, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        syncs.append(where)
+        return out
+
+    trainer._step_fns[size] = step
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    torch.cuda.synchronize()
+    gaps = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    events = list((tmp / "obs_run" / "tb").glob("events.out.tfevents.*"))
+    trace = tmp / "obs_run" / "profile" / "trace.json"
+    kernels = 0
+    if trace.exists():
+        kernels = sum(e.get("cat") == "kernel" for e in json.loads(trace.read_text())
+                      ["traceEvents"])
+    n_sync = sum(len(w) for w in syncs)
+    log(f"  Trainer with TensorBoard and the profiler (2 updates traced), 3 updates at "
+        f"{TRAIN_BATCH} x {TRAIN_ACCUMULATE}: ms per update {gaps} (phase 8: {phase8_ms}); "
+        f"host syncs in the updates {n_sync} {syncs}; event file {[e.name for e in events]} "
+        f"({sum(e.stat().st_size for e in events)} bytes); trace {trace.exists()} with "
+        f"{kernels} device kernel events [{card}]")
+    if not events or not trace.exists() or kernels == 0:
+        fail("the Trainer wrote no event file, or no trace with the card's kernels")
+    if n_sync:
+        fail(f"host syncs inside an update with TensorBoard on: {syncs}")
+    return {"ms_per_update": gaps, "phase8_ms_per_update": phase8_ms, "host_syncs": n_sync,
+            "trace_kernel_events": kernels, "event_bytes": sum(e.stat().st_size for e in events)}
+
+
+def phase_dist_and_tools(card, phase8_ms):
+    """Phase 14: the reference-checkpoint import and ``val`` both ways,
+    ``detect --save-dir``, the numeric mode, data parallelism and the
+    Trainer's TensorBoard and profiler, on yolov5s at 640 (nc=80, full
+    width and depth)."""
+    from yoloseries_tpu_torch.cli.detect import main as detect_main
+    from yoloseries_tpu_torch.cli.import_torch import main as import_main
+    from yoloseries_tpu_torch.cli.val import main as val_main
+    from yoloseries_tpu_torch.utils.visualize import save_detection_image
+
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    out, launches, seconds = {}, {}, {}
+    gen = torch.Generator().manual_seed(0)
+    calib = torch.randint(0, 256, (2, 3, 320, 320), generator=gen).float() / 255
+    tools_blob(calib, tmp / "ref.pth")
+    val_dirs = synthetic_folder(tmp / "val", 32, seed=24)
+
+    # (a) import, then val on the checkpoint and on the blob
+    t0 = time.perf_counter()
+    import_main(["--model", "yolov5s", "--pth", str(tmp / "ref.pth"), "--num-class", "80",
+                 "--out", str(tmp / "imported"), "--device", "cuda"])
+    common = ["--model", "yolov5s", "--val-img-dir", str(val_dirs[0]), "--val-lab-dir",
+              str(val_dirs[1]), "--name-path", str(val_dirs[2]), "--batch-size", "16",
+              "--device", "cuda"]
+    # the plots need matplotlib, which a card's machine may lack
+    plot = importlib.util.find_spec("matplotlib") is not None
+    results, captured = {}, None
+    for label, source in (("ckpt", ["--ckpt-dir", str(tmp / "imported" / "checkpoints")]
+                           + (["--plot-dir", str(tmp / "plots")] if plot else [])),
+                          ("weights", ["--weights", str(tmp / "ref.pth")])):
+        zero_counters()
+        with record_nms_inputs() as rec:
+            res = val_main([*source, "--save-pkl-dir", str(tmp / f"pkl_{label}"), *common])
+        path = read_counters()
+        add_launches(launches, path)
+        bad, kept, live = greedy_mismatches(rec["nms_greedy"])
+        captured = captured or rec["nms_greedy"][0]
+        results[label] = res
+        log(f"  cli/val.py {'--ckpt-dir (imported)' if label == 'ckpt' else '--weights (.pth)'}"
+            f": mAP {res['map']:.6f} mAP50 {res['map50']:.6f}; launches {path}; nms_greedy "
+            f"{live} live, {kept} kept, {bad} mismatches [{card}]")
+        if path["nms_greedy"] == 0 or bad or kept == 0:
+            fail(f"val {label}: B1 not launched, a twin mismatch or nothing kept")
+    same = same_detections(read_pickles(tmp / "pkl_ckpt"), read_pickles(tmp / "pkl_weights"))
+    plots = (sorted(p.name for p in (tmp / "plots").iterdir()) if plot else
+             "not run: this machine has no matplotlib")
+    log(f"  import then val: identical detections {same}, mAP {results['ckpt']['map']} vs "
+        f"{results['weights']['map']}; --plot-dir: {plots} [{card}]")
+    if not same or results["ckpt"]["map"] != results["weights"]["map"]:
+        fail("val on the imported checkpoint and on the blob disagree")
+    if plot and plots != ["AP_Per_Class.png", "PRCurve.png"]:
+        fail("--plot-dir did not write its plots")
+    out["import_val"] = {"map": results["ckpt"]["map"], "map50": results["ckpt"]["map50"],
+                         "identical": same, "plots": plots}
+    out["b1_import_val"] = kernel_at("nms_greedy", captured, "import val", 0, card)
+    seconds["import_val"] = time.perf_counter() - t0
+
+    # (b) detect --save-dir: the drawn images against a CPU redraw
+    t0 = time.perf_counter()
+    few = tmp / "few"
+    few.mkdir()
+    for p in sorted(val_dirs[0].iterdir())[:6]:
+        (few / p.name).symlink_to(p)
+    zero_counters()
+    with record_nms_inputs() as rec:
+        dets = detect_main(["--model", "yolov5s", "--ckpt-dir",
+                            str(tmp / "imported" / "checkpoints"), "--img-dir", str(few),
+                            "--name-path", str(val_dirs[2]), "--save-dir", str(tmp / "drawn"),
+                            "--device", "cuda"])
+    path = read_counters()
+    add_launches(launches, path)
+    bad, calls = twin_mismatches(rec)
+    from PIL import Image
+
+    table = [f"class{c}" for c in range(80)]
+    identical = 0
+    for name, rows in dets.items():
+        arr = np.asarray(rows, np.float64).reshape(-1, 6)
+        raw = np.asarray(Image.open(few / name).convert("RGB"))
+        save_detection_image(raw, arr if len(arr) else None, tmp / "redrawn" / name, table)
+        identical += (tmp / "drawn" / name).read_bytes() == (tmp / "redrawn" / name).read_bytes()
+    n_det = sum(len(v) for v in dets.values())
+    log(f"  cli/detect.py --save-dir on 6 images: {n_det} detections; {identical}/6 drawn images "
+        f"byte-identical to a CPU redraw; launches {path}, {bad} twin mismatches over {calls} "
+        f"calls [{card}]")
+    if identical != 6 or n_det == 0 or bad or sum(path.values()) == 0:
+        fail("detect --save-dir: a drawing differs, nothing detected, or a kernel disagrees")
+    out["detect"] = {"detections": n_det, "identical_images": identical}
+    seconds["detect"] = time.perf_counter() - t0
+
+    # (c) the numeric mode: PyTorch's defaults, then val sets TF32 off itself
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    zero_counters()
+    val_main(["--weights", str(tmp / "ref.pth"), "--save-pkl-dir", str(tmp / "pkl_reset"),
+              *common])
+    add_launches(launches, read_counters())
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark)
+    same = same_detections(read_pickles(tmp / "pkl_reset"), read_pickles(tmp / "pkl_weights"))
+    log(f"  val after the flags were reset to PyTorch's defaults: (cudnn tf32, matmul tf32, "
+        f"benchmark) = {flags}; detections identical to TF32 off: {same} [{card}]")
+    if flags != (False, False, True) or not same:
+        fail("the entry point did not set the numeric mode")
+    out["numeric_mode"] = {"flags": flags, "identical": same}
+    seconds["numeric_mode"] = time.perf_counter() - t0
+
+    # (d) data parallelism, (e) TensorBoard and the profiler
+    t0 = time.perf_counter()
+    out["dist"], dist_launches = dist_runs(card, tmp)
+    add_launches(launches, dist_launches)
+    seconds["dist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["observability"] = observability_run(card, tmp, phase8_ms)
+    seconds["observability"] = time.perf_counter() - t0
+    tmp_dir.cleanup()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 14: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); launches {launches} [{card}]")
+    out.update(launches=launches, seconds=seconds, phase_s=wall)
+    return out
+
+
 def kernel_summary(rows):
     """At most one summary per kernel of a phase's per-path rows: the paths,
     the launches on them, the slowest device time and its bound."""
@@ -3477,6 +3895,13 @@ def main():
     for row in rows:
         row["launches"] += last["launches"].get(row["name"], 0)
         row["last_families"] = summary.get(row["name"], {})
+    log("== 14. reference-checkpoint import, val --plot-dir/--weights, detect --save-dir, the "
+        "numeric mode, data parallelism, TensorBoard and the profiler")
+    dist = phase_dist_and_tools(card, train["ms_per_update"])
+    print(json.dumps({"dist_and_tools": dist}, separators=(",", ":"), default=str))
+    for row in rows:
+        row["launches"] += dist["launches"].get(row["name"], 0)
+    b1["dist_and_tools"] = {"b1_import_val": dist["b1_import_val"], "phase_s": dist["phase_s"]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}, separators=(",", ":")))  # compact: ~20 KB
     print(card)
@@ -3486,4 +3911,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:  # one rank of phase 14, under torchrun
+        ddp_worker(*sys.argv[2:])
+    else:
+        main()

@@ -12,7 +12,7 @@
 * ``cli/detect.py --ckpt-dir`` on a port checkpoint writes what
   ``--weights`` writes on the same weights;
 * the entry points' refusals: no checkpoint, both or neither weight
-  source, ``--plot-dir`` (ROADMAP A10).
+  source; ``--plot-dir`` writes its plots.
 """
 
 import dataclasses
@@ -296,8 +296,12 @@ def test_val_refusals(folder, checkpoints, tmp_path):
             "--input-size", str(SIZE), "--device", "cpu"]
     with pytest.raises(SystemExit, match="no checkpoint"):
         main(["--ckpt-dir", str(tmp_path / "empty"), *args])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\)"):
-        main(["--ckpt-dir", str(checkpoints / "port"), "--plot-dir", str(tmp_path), *args])
+    # --plot-dir once raised (ROADMAP A10); it now writes the plots
+    out = main(["--ckpt-dir", str(checkpoints / "port"), "--plot-dir", str(tmp_path / "plots"),
+                *args])
+    assert out["map50"] > 0
+    assert sorted(p.name for p in (tmp_path / "plots").iterdir()) == ["AP_Per_Class.png",
+                                                                       "PRCurve.png"]
 
 
 # ------------------------------------------------------------- detect

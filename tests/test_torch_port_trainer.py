@@ -12,8 +12,8 @@ data, ops.metrics) against the JAX package.
   metrics equal to 1e-6; the port's NMS took the B1 branch
   (``nms_greedy``, K=4096); then the same with the preset's augmentation
   and the image cache, closed for the last epoch;
-* the Trainer raises, naming the ROADMAP item, for each setting that needs
-  a module not ported yet.
+* the settings that once raised for a module not ported yet
+  (``per_replica_bn``) build and train on one process.
 """
 
 import jax
@@ -340,13 +340,21 @@ def test_trainer_with_augmentation_and_cache_matches_jax(folder, start_weights, 
     ({"per_replica_bn": True}, torch.float32, "A8"),
 ])
 def test_trainer_raises_for_what_is_not_ported(folder, tmp_path, hyp, dtype, item):
-    """A setting that needs a module not ported yet raises at construction,
-    naming its ROADMAP item (the card check is in the hygiene tests);
+    """Each setting that once needed a module not ported yet now builds: with
+    ``per_replica_bn`` on one process the Trainer makes the plain step (no
+    collective, BN on its own batch) and trains (ROADMAP A8; the data
+    parallel steps are held in ``tests/test_torch_port_ddp.py``);
     ``remat``, ``s2d_stem`` and bf16 are ported
     (``tests/test_torch_port_train_knobs.py``)."""
     from yoloseries_tpu_torch.train import Trainer
 
     img_dir, lab_dir, names = folder
-    cfg = TrainConfig.from_hyp({**_hyp(), **hyp}, num_class=NC, output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-        Trainer(cfg, (img_dir, lab_dir), names_path=names, compute_dtype=dtype, device="cpu")
+    cfg = TrainConfig.from_hyp({**_hyp(), **hyp, "total_epoch": 1}, num_class=NC,
+                               output_dir=str(tmp_path))
+    tr = Trainer(cfg, (img_dir, lab_dir), names_path=names, compute_dtype=dtype, device="cpu")
+    try:
+        assert tr.per_replica_bn and tr.world == 1 and tr._collective is None, item
+        tr.train()
+    finally:
+        tr.close()
+    assert len(tr.history) == tr.steps_per_epoch and np.isfinite(tr.history[-1]["tot_loss"])

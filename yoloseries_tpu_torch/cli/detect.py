@@ -4,16 +4,20 @@
         --img-dir photos/ --name-path names.txt [--conf 0.3] [--iou 0.2] [--device cpu]
 
 Weights come from exactly one of ``--ckpt-dir`` (the EMA weights of the
-newest checkpoint that the port's ``cli/train.py`` wrote) and ``--weights``:
-a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the JAX
+newest checkpoint that the port's ``cli/train.py`` or ``cli/import_torch.py``
+wrote) and ``--weights``: a reference ``.pth`` (its EMA weights when it has
+them), a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the JAX
 package's trees in an ``.npz`` whose keys are ``params/...`` and
-``batch_stats/...`` paths joined by ``/``. The class count comes from
+``batch_stats/...`` paths joined by ``/``
+(``utils/weights.py::load_blob_weights``). The class count comes from
 ``--name-path``, else ``--num-class``. Images are letterboxed on the host,
 run through ``Evaluator`` with the decode and the fused selection of the
 model's family (``families.py``: every family of the JAX package) and
 class-aware NMS
-on the card, and the detections, in original-image pixels, are written as
-JSON.
+on the card. Each image is written to ``--save-dir`` under its own name with
+its boxes drawn (``utils/visualize.py::save_detection_image``), a report of
+its detections per class is printed, and the detections, in original-image
+pixels, are written as ``detections.json``.
 
 Each conv+BN pair is folded into one biased conv before inference
 (``nn/deploy.py::fold_conv_bn``), and YOLOv7's RepConvs then into their
@@ -22,8 +26,7 @@ three RepConv branches. A model without BN (FCOS's GroupNorm ResNet) has
 nothing to fold.
 ``--s2d-stem`` builds the space-to-depth stem (a checkpoint trained with
 ``s2d_stem: true``; YOLOv5 and YOLOX on the CSP trunk); ``--bf16`` computes
-in bfloat16. A flag the model has no knob for raises ``ValueError``. Not ported yet:
-drawing the boxes on the images (ROADMAP A10).
+in bfloat16. A flag the model has no knob for raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..evaluation import EvalConfig, Evaluator
 from ..families import get_family
 from ..models import create_model
 from ..nn.deploy import fold_conv_bn, fold_repconv
-from ..utils.weights import state_dict_from_jax, unflatten_tree
+from ..utils.weights import load_blob_weights
 
 __all__ = ["detect_batch", "load_weights", "main"]
 
@@ -48,15 +51,9 @@ IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 def load_weights(model: torch.nn.Module, path) -> None:
-    """Load a ``.pt`` port ``state_dict`` or an ``.npz`` of JAX trees."""
-    path = Path(path)
-    if path.suffix == ".npz":
-        with np.load(path) as data:
-            tree = unflatten_tree({tuple(k.split("/")): data[k] for k in data.files})
-        sd = state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(sd)
+    """Load a reference ``.pth`` (its EMA weights when it has them), a
+    ``.pt`` port ``state_dict`` or an ``.npz`` of JAX trees."""
+    load_blob_weights(model, path, params="ema")
 
 
 def detect_batch(evaluator: Evaluator, batch_u8, infos=None) -> list:
@@ -72,7 +69,7 @@ def parse_args(argv=None):
     p.add_argument("--model", default="yolov5s")
     source = p.add_mutually_exclusive_group(required=True)
     source.add_argument("--ckpt-dir", default=None, help="the EMA weights of the newest step")
-    source.add_argument("--weights", default=None, help="a .pt state_dict or an .npz of JAX trees")
+    source.add_argument("--weights", default=None, help="a reference .pth, a .pt state_dict or an .npz of JAX trees")
     p.add_argument("--img-dir", required=True)
     p.add_argument("--save-dir", default="detect_out")
     p.add_argument("--name-path", default=None)
@@ -96,13 +93,18 @@ def main(argv=None):
     from PIL import Image  # only the CLI reads image files
 
     from ..data.dataset import load_names
-    from ..device import resolve_device
+    from ..device import resolve_device, set_numeric_mode
     from ..ops.letterbox import letterbox_image
     from ..train.checkpoint import restore_weights
+    from ..utils.visualize import detection_report, save_detection_image
 
     device = resolve_device(args.device)
+    set_numeric_mode()
+    names = None
     if args.name_path:
-        num_class = max(load_names(args.name_path)) + 1
+        table = load_names(args.name_path)
+        num_class = max(table) + 1
+        names = [table.get(i, str(i)) for i in range(num_class)]
     elif args.num_class:
         num_class = args.num_class
     else:
@@ -142,17 +144,20 @@ def main(argv=None):
         chunk = paths[start:start + args.batch_size]
         batch = np.zeros((args.batch_size, *size, 3), np.uint8)
         infos = np.ones((args.batch_size, 5), np.float32)  # padding rows: identity
+        raws = []
         for i, p in enumerate(chunk):
-            raw = np.asarray(Image.open(p).convert("RGB"))
-            batch[i], info = letterbox_image(raw, size, stride=32)
+            raws.append(np.asarray(Image.open(p).convert("RGB")))
+            batch[i], info = letterbox_image(raws[i], size, stride=32)
             infos[i] = info.as_array()
         t0 = time.perf_counter()
         preds = detect_batch(evaluator, batch, infos)[:len(chunk)]
         dt = time.perf_counter() - t0
-        for p, det in zip(chunk, preds):
+        for p, raw, det in zip(chunk, raws, preds):
+            save_detection_image(raw, det, save_dir / p.name, names)
             n = 0 if det is None else len(det)
             results[p.name] = [] if det is None else det.tolist()
-            print(f"{p.name}: {n} boxes ({dt / len(chunk):.3f}s/img)")
+            print(f"{p.name}: {detection_report(det, names)} ({n} boxes, "
+                  f"{dt / len(chunk):.3f}s/img)")
     out = save_dir / "detections.json"
     out.write_text(json.dumps(results))
     print(f"saved to {out}")

@@ -50,10 +50,12 @@ def main(argv=None):
 
     from ..configs import TrainConfig, load_hyp
     from ..data.dataset import DetectionDataset, load_names
-    from ..device import resolve_device
+    from ..device import set_numeric_mode
+    from ..parallel.dist import init_from_env
     from ..train import Trainer
 
-    device = resolve_device(args.device)
+    device = init_from_env(args.device)
+    set_numeric_mode()
     hyp = load_hyp(args.cfg) if args.cfg else {}
     if args.batch_size:
         hyp["batch_size"] = args.batch_size
@@ -87,6 +89,9 @@ def main(argv=None):
         trainer.train(eval_fn=eval_fn)
     finally:
         trainer.close()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -1,19 +1,22 @@
 """mAP validation of a checkpoint with the port.
 
     python -m yoloseries_tpu_torch.cli.val --model yolov5s --ckpt-dir runs/checkpoints \
-        --val-img-dir ... --val-lab-dir ... [--tta] [--device cpu]
+        --val-img-dir ... --val-lab-dir ... [--tta] [--plot-dir plots] [--device cpu]
 
 The arguments of the JAX package's ``cli/val.py``, plus ``--device``
-(default ``cuda``: no card is an error unless ``--device cpu``). The newest
-checkpoint that the port's ``cli/train.py`` wrote under ``--ckpt-dir`` is
-restored into a train state; its EMA weights (``--params ema``, the
-default) or its trained ones (``raw``) are scored at the protocol
+(default ``cuda``: no card is an error unless ``--device cpu``) and
+``--weights``. The weights come from exactly one of ``--ckpt-dir`` (the
+newest checkpoint that the port's ``cli/train.py`` or ``cli/import_torch.py``
+wrote, restored into a train state) and ``--weights`` (a reference ``.pth``,
+a port ``state_dict`` or an ``.npz`` of JAX trees:
+``utils/weights.py::load_blob_weights``); their EMA weights (``--params
+ema``, the default) or their trained ones (``raw``) are scored at the protocol
 thresholds (conf .001, iou .65, K=4096 unless the ``--cfg`` hyp says
 otherwise), predictions and ground truth un-letterboxed to the original
 images. ``--save-pkl-dir`` pickles both, per image. A hyp with
 ``s2d_stem: true`` builds the space-to-depth stem the checkpoint was trained
-with. ``--plot-dir`` needs the curve plots, which are not ported yet
-(ROADMAP A10).
+with (a 6x6 stem from ``--weights`` is mapped to it). ``--plot-dir`` writes
+the PR curve and the per-class AP bars there (``ops/metrics.py::plot_metrics``).
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--cfg", default=None, help="YAML config (reference format)")
     p.add_argument("--model", default="yolov5s")
-    p.add_argument("--ckpt-dir", required=True)
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--ckpt-dir", default=None, help="the newest checkpoint under it")
+    source.add_argument("--weights", default=None,
+                        help="a reference .pth, a port .pt state_dict or an .npz of JAX trees")
     p.add_argument("--val-img-dir", required=True)
     p.add_argument("--val-lab-dir", required=True)
     p.add_argument("--name-path", default=None)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--input-size", type=int, default=640)
     p.add_argument("--tta", action="store_true")
-    p.add_argument("--plot-dir", default=None, help="P/R/F1/PR curves (not ported yet)")
+    p.add_argument("--plot-dir", default=None, help="write the PR curve and per-class AP plots here")
     p.add_argument("--params", choices=["ema", "raw"], default="ema",
                    help="score the EMA weights (default) or the trained ones")
     p.add_argument("--max-batches", type=int, default=None)
@@ -50,19 +56,20 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.plot_dir:
-        raise NotImplementedError("--plot-dir: the metric plots are not ported yet (ROADMAP A10)")
-
+    if args.plot_dir:  # the plots need matplotlib: fail before the pass, not after it
+        import matplotlib  # noqa: F401
     from ..configs import load_hyp
     from ..data import DataLoader, DetectionDataset
-    from ..device import resolve_device
+    from ..device import resolve_device, set_numeric_mode
     from ..evaluation import EvalConfig, Evaluator
     from ..families import get_family
     from ..models import create_model
-    from ..ops.metrics import DetectionMetrics
+    from ..ops.metrics import DetectionMetrics, plot_metrics
     from ..train.checkpoint import restore_weights
+    from ..utils.weights import load_blob_weights
 
     device = resolve_device(args.device)
+    set_numeric_mode()
     hyp = load_hyp(args.cfg) if args.cfg else {}
     hyp.setdefault("use_tta", args.tta)
     input_size = (args.input_size, args.input_size)
@@ -75,10 +82,14 @@ def main(argv=None):
     model_kw = {"s2d_stem": True} if hyp.get("s2d_stem") else {}
     model = create_model(args.model, num_class=num_class, device="cpu", **model_kw)
     family = get_family(args.model)
-    step = restore_weights(model, args.ckpt_dir, params=args.params, device=device)
-    if step is None:
-        raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
-    print(f"loaded checkpoint at step {step}")
+    if args.weights:
+        load_blob_weights(model, args.weights, params=args.params)
+        print(f"loaded {args.weights}")
+    else:
+        step = restore_weights(model, args.ckpt_dir, params=args.params, device=device)
+        if step is None:
+            raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+        print(f"loaded checkpoint at step {step}")
 
     eval_cfg = EvalConfig(
         conf_threshold=hyp.get("compute_metric_conf_threshold", 0.001),
@@ -133,6 +144,9 @@ def main(argv=None):
     out = metrics.compute()
     print(f"mAP@0.5:0.95 {out['map']:.4f}  mAP@0.5 {out['map50']:.4f}  "
           f"P {out['mp']:.4f}  R {out['mr']:.4f}")
+    if args.plot_dir:
+        plot_metrics(out, args.plot_dir, cls2lab=dataset.cls2name or None)
+        print(f"curves saved to {args.plot_dir}")
     return out
 
 

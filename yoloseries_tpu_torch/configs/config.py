@@ -58,7 +58,7 @@ class TrainConfig:
     seed: int = 7
     num_workers: int = 8
     do_ema: bool = True
-    # not ported yet: the Trainer raises when it is set (ROADMAP A1)
+    # recompute each CSP block in the backward (torch.utils.checkpoint)
     remat: bool = False
     # render mosaic, mixup, warp, cutout and HSV on the card
     # (data/device_aug.py): the host's workers only plan each sample

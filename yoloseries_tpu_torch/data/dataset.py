@@ -27,6 +27,7 @@ classes of an item without reading its pixels.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -95,6 +96,17 @@ class DetectionDataset:
 
     def __len__(self):
         return len(self.img_files)
+
+    def subset(self, start: int, stop: int) -> "DetectionDataset":
+        """The images ``[start, stop)`` as a dataset of their own (a
+        rank's contiguous part of a val set)."""
+        out = copy.copy(self)
+        out.img_files = self.img_files[start:stop]
+        out._ann_cache, out._meta_cache = {}, {}
+        for name in ("_cache", "_cache_shapes", "_orig_shapes"):
+            arr = getattr(self, name)
+            setattr(out, name, None if arr is None else arr[start:stop])
+        return out
 
     @property
     def num_class(self) -> int:

@@ -1,7 +1,8 @@
 """Fixed-shape batching on the host; counterpart of
 ``yoloseries_tpu/data/loader.py``.
 
-* a seeded, rank-sharded infinite index stream,
+* a seeded infinite index stream (under data parallelism each rank makes
+  only its rows of every batch),
 * letterbox collate into static shapes: uint8 (B, H, W, 3) images and a
   -1-padded float32 (B, M, 6) annotation tensor [x1, y1, x2, y2, cls,
   img_idx] with a fixed M (boxes past M are dropped and counted),
@@ -35,6 +36,7 @@ import numpy as np
 
 from ..ops.letterbox import letterbox_boxes, letterbox_image
 from ..ops.preprocess import letterbox_plan
+from ..parallel.dist import part_rows
 from .augment import import_cv2
 from .device_aug import N_TILES, device_aug_supported, plan_sample
 
@@ -104,9 +106,9 @@ def join_pool(pool: ThreadPoolExecutor) -> None:
             time.sleep(0.001)
 
 
-def infinite_indices(size: int, seed: int, rank: int = 0, world_size: int = 1,
-                     shuffle: bool = True):
-    """Seeded infinite index stream, every ``world_size``-th from ``rank``."""
+def infinite_indices(size: int, seed: int, shuffle: bool = True):
+    """Seeded infinite index stream: a fresh permutation of the set (or the
+    set in order) after another."""
     rng = np.random.default_rng(seed)
 
     def stream():
@@ -116,7 +118,7 @@ def infinite_indices(size: int, seed: int, rank: int = 0, world_size: int = 1,
             else:
                 yield from range(size)
 
-    return itertools.islice(stream(), rank, None, world_size)
+    return stream()
 
 
 def _letterbox(img, dst_hw, fill_value: int, stride: int = 32):
@@ -190,9 +192,10 @@ class DataLoader:
     default when there is more than one worker, more than one core and the
     fork start method), which also write their pixels into a shared arena,
     or else by threads: augmentation is numpy/cv2 work that threads
-    serialize on the interpreter lock. One instance per process; under data
-    parallelism give each process its (rank, world_size) so that the index
-    streams do not overlap.
+    serialize on the interpreter lock. One instance per process. Under data
+    parallelism, ``part=(rank, world, groups)`` makes only this rank's rows
+    of each batch of ``batch_size`` that one process would make
+    (``parallel/dist.py::part_rows``), sample ids and all.
 
     ``device_aug``: while augmentation is on, batches are plans
     (``collate_plan_batch``) for ``render_batch`` on the card; a knob set
@@ -201,18 +204,17 @@ class DataLoader:
     (which must exist) instead of carrying tiles."""
 
     def __init__(self, dataset, batch_size: int, max_labels: int = 300, seed: int = 7,
-                 rank: int = 0, world_size: int = 1, workers: int = 8, shuffle: bool = True,
-                 infinite: bool = True, enable_aug: bool | None = None, prefetch: int = 2,
+                 workers: int = 8, shuffle: bool = True, infinite: bool = True,
+                 enable_aug: bool | None = None, prefetch: int = 2,
                  use_processes: bool | None = None, device_aug: bool = False,
-                 device_cache: bool = False):
+                 device_cache: bool = False, part: tuple | None = None):
         self.dataset = dataset
+        self.part = part
         self.batch_size = batch_size
         self.max_labels = max_labels
         self.seed = seed
         self.infinite = infinite
         self.shuffle = shuffle
-        self.rank = rank
-        self.world_size = world_size
         self._enable_aug = dataset.enable_aug if enable_aug is None else enable_aug
         self._input_size = tuple(dataset.input_size)
         self.device_aug = bool(device_aug)
@@ -246,6 +248,8 @@ class DataLoader:
         self._queue: Queue = Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._sample_counter = 0
+        self._consumed = 0  # batches handed to the consumer
+        self._aug_until = None  # set by close_data_aug
         self.dropped_boxes = 0  # boxes lost to max_labels truncation
         self._warned_drop = False
         self._producer = threading.Thread(target=self._produce, daemon=True)
@@ -259,23 +263,34 @@ class DataLoader:
 
     def __len__(self):
         """Batches per epoch (drop_last)."""
-        return max(len(self.dataset) // (self.batch_size * self.world_size), 1)
+        return max(len(self.dataset) // self.batch_size, 1)
 
     def close_data_aug(self):
+        """Make the batches from a fixed one on without augmentation: the
+        first the producer cannot have started yet (the consumer's position,
+        plus the queue's capacity, plus the one in the making). Which
+        batches are augmented then never depends on how far the producer
+        had run ahead, nor differs between ranks."""
+        self._aug_until = self._consumed + self._queue.maxsize + 1
         self._enable_aug = False
 
-    def _load_one(self, idx: int, sample_id: int):
+    def _augments(self, n: int) -> bool:
+        """Whether batch ``n`` (counted from 0) is augmented."""
+        return self._enable_aug or (self._aug_until is not None and n < self._aug_until)
+
+    def _load_one(self, idx: int, sample_id: int, aug: bool):
         rng = np.random.default_rng((self.seed, sample_id))
-        return self.dataset.get(idx, rng, enable_aug=self._enable_aug)
+        return self.dataset.get(idx, rng, enable_aug=aug)
 
     def _plan_one(self, idx: int, sample_id: int):
         rng = np.random.default_rng((self.seed, sample_id))
         return plan_sample(self.dataset, idx, rng, with_pixels=not self.device_cache)
 
-    def _make_batch(self, chunk, ids):
-        """One batch from the samples ``chunk`` with sample ids ``ids``."""
+    def _make_batch(self, chunk, ids, aug: bool):
+        """One batch from the samples ``chunk`` with sample ids ``ids``,
+        augmented when ``aug``."""
         fill = self.dataset.aug.fill_value
-        if self.device_aug and self._enable_aug:
+        if self.device_aug and aug:
             with_pixels = not self.device_cache
             if self._proc_pool is None:
                 samples = list(self._pool.map(self._plan_one, chunk, ids))
@@ -290,18 +305,17 @@ class DataLoader:
                                                     (N_TILES, *hw, 3))
             return collate_plan_batch(samples, self._input_size, self.max_labels)
         if self._proc_pool is None:
-            samples = list(self._pool.map(self._load_one, chunk, ids))
+            samples = list(self._pool.map(self._load_one, chunk, ids, [aug] * len(chunk)))
             return collate_batch(samples, self._input_size, self.max_labels, fill_value=fill)
         done = self._proc_pool.map(
-            _worker_load, [(i, sid, self.seed, self._enable_aug, self._input_size, fill, slot)
+            _worker_load, [(i, sid, self.seed, aug, self._input_size, fill, slot)
                            for slot, (i, sid) in enumerate(zip(chunk, ids))])
         return _assemble([(_arena_view(self._arena, slot, self._slot_bytes, out)
                            if isinstance(out, tuple) else out, *rest)
                           for slot, (out, *rest) in enumerate(done)], self.max_labels)
 
     def _produce(self):
-        indices = infinite_indices(len(self.dataset), self.seed, self.rank, self.world_size,
-                                   self.shuffle)
+        indices = infinite_indices(len(self.dataset), self.seed, self.shuffle)
         if not self.infinite:
             indices = itertools.islice(indices, len(self) * self.batch_size)
         while not self._stop.is_set():
@@ -309,10 +323,14 @@ class DataLoader:
             if len(chunk) < self.batch_size:
                 self._queue.put(None)
                 return
-            ids = range(self._sample_counter, self._sample_counter + len(chunk))
+            aug = self._augments(self._sample_counter // self.batch_size)
+            ids = list(range(self._sample_counter, self._sample_counter + len(chunk)))
             self._sample_counter += len(chunk)
+            if self.part is not None:
+                rows = part_rows(len(chunk), *self.part)
+                chunk, ids = [chunk[i] for i in rows], [ids[i] for i in rows]
             try:
-                batch = self._make_batch(chunk, ids)
+                batch = self._make_batch(chunk, ids, aug)
             except Exception as e:  # noqa: BLE001
                 if self._stop.is_set():
                     return  # the pools were shut down by stop()
@@ -338,6 +356,7 @@ class DataLoader:
             raise StopIteration
         if isinstance(batch, Exception):
             raise batch
+        self._consumed += 1
         return batch
 
     def _halt(self):
@@ -362,7 +381,8 @@ class DataLoader:
             raise ValueError("restart() only applies to finite loaders")
         self._halt()
         self._stop.clear()
-        self._sample_counter = 0
+        self._sample_counter = self._consumed = 0
+        self._aug_until = None if self._enable_aug else 0
         self._producer = threading.Thread(target=self._produce, daemon=True)
         self._producer.start()
 

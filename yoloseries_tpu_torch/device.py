@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "set_numeric_mode"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def set_numeric_mode() -> None:
+    """The numeric mode every entry point runs in, and every card number of
+    the port was taken in: f32 convolutions and matmuls without TF32, and
+    cuDNN's autotuner picking each convolution's algorithm at first use.
+    Without it PyTorch's defaults would run cuDNN convolutions in TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True

@@ -45,6 +45,9 @@ class Family:
     make_decode: Callable
     make_select: Callable | None = None
     eval_overrides: Callable | None = None  # (hyp) -> dict of EvalConfig fields
+    # make_loss takes reduce= (a sum over data-parallel ranks) and then
+    # computes the global batch's loss (losses/yolov5.py)
+    global_batch_loss: bool = False
 
     def apply_eval_overrides(self, eval_cfg, hyp=None):
         if self.eval_overrides is None:
@@ -53,7 +56,7 @@ class Family:
 
 
 def _yolov5_family() -> Family:
-    def make_loss(hyp, num_class, input_size):
+    def make_loss(hyp, num_class, input_size, reduce=None):
         cfg = YOLOv5LossConfig(
             num_class=num_class,
             input_size=tuple(input_size),
@@ -70,7 +73,7 @@ def _yolov5_family() -> Family:
         )
 
         def loss_fn(preds, targets, balances):
-            return yolov5_loss(preds, targets, YOLOV5_ANCHORS, balances, cfg)
+            return yolov5_loss(preds, targets, YOLOV5_ANCHORS, balances, cfg, reduce=reduce)
 
         return loss_fn, initial_balances()
 
@@ -84,7 +87,7 @@ def _yolov5_family() -> Family:
 
         return yolov5_select_fn
 
-    return Family("yolov5", make_loss, make_decode, make_select)
+    return Family("yolov5", make_loss, make_decode, make_select, global_batch_loss=True)
 
 
 def _yolox_family() -> Family:

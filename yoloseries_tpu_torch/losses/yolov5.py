@@ -94,7 +94,7 @@ def objectness_winners(cells: torch.Tensor, live: torch.Tensor, order_key: torch
 
 
 def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
-                anchors, balances: torch.Tensor, cfg: YOLOv5LossConfig):
+                anchors, balances: torch.Tensor, cfg: YOLOv5LossConfig, reduce=None):
     """The YOLOv5 training loss.
 
     stage_preds: per-stage NCHW maps (B, A*(5+nc), H, W) at strides 8/16/32;
@@ -104,6 +104,14 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
 
     Returns (loss_dict, new_balances); ``loss_dict['tot_loss']`` is the
     scalar to differentiate, the other entries are detached.
+
+    ``reduce``: a sum over data-parallel ranks (``parallel/dist.py::
+    all_reduce_sum``), for the loss of the global batch that the JAX
+    package's pjit step computes. The counts it divides by (the batch, the
+    positives) and the stage losses that update the balances are summed
+    over the ranks; each rank's ``loss_dict`` is then its share of the
+    global loss, so that the shares (and their gradients) sum to it. The
+    balances come out global, the same on every rank.
     """
     num_stages = len(stage_preds)
     dev = stage_preds[0].device
@@ -116,6 +124,10 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
     no = 5 + nc
     h_in, w_in = cfg.input_size
     balances = balances.to(dev)
+    if reduce is None:
+        global_batch = batch_size
+    else:
+        global_batch = reduce(torch.full((), float(batch_size), device=dev))
 
     valid = targets[..., 4] >= 0  # (B, M)
     t_xywhn = xyxy2xywhn(targets[..., :4], (w_in, h_in))
@@ -143,6 +155,8 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
         maskf = a["mask"].float()  # (B, M, A, 5)
         n_pos = maskf.sum()
         tar_num = tar_num + n_pos
+        if reduce is not None:
+            n_pos = reduce(n_pos.clone())
 
         # rows at the assigned cells: (B, M, 5, A, no) -> (B, M, A, 5, no)
         gy, gx = a["gy"].long(), a["gx"].long()
@@ -188,8 +202,9 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
                                         fm_h * fm_w * na)
         l_cand = cur[..., 4].reshape(batch_size, -1)
         corr = torch.where(winner, obj_term(l_cand, vals) - obj_term(l_cand, 0.0), 0.0)
-        cof_i = (full_sum + corr.sum()) / (batch_size * fm_h * fm_w * na) * balances[i]
-        new_balances.append(balances[i] * 0.9999 + 0.0001 / cof_i.detach())
+        cof_i = (full_sum + corr.sum()) / (global_batch * (fm_h * fm_w * na)) * balances[i]
+        cof_global = cof_i.detach() if reduce is None else reduce(cof_i.detach().clone())
+        new_balances.append(balances[i] * 0.9999 + 0.0001 / cof_global)
         cof_loss = cof_loss + cof_i
 
     new_balances = torch.stack(new_balances)
@@ -198,13 +213,13 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
     iou_loss = iou_loss * cfg.iou_loss_scale * s
     cof_loss = cof_loss * cfg.cof_loss_scale * s * (1.0 if num_stages == 3 else 1.4)
     cls_loss = cls_loss * cfg.cls_loss_scale * s
-    tot_loss = (iou_loss + cof_loss + cls_loss) * batch_size
+    tot_loss = (iou_loss + cof_loss + cls_loss) * global_batch
 
     loss_dict = {
         "tot_loss": tot_loss,
-        "iou_loss": iou_loss.detach() * batch_size,
-        "cof_loss": cof_loss.detach() * batch_size,
-        "cls_loss": cls_loss.detach() * batch_size,
+        "iou_loss": iou_loss.detach() * global_batch,
+        "cof_loss": cof_loss.detach() * global_batch,
+        "cls_loss": cls_loss.detach() * global_batch,
         "tar_nums": tar_num.detach(),
     }
     return loss_dict, new_balances

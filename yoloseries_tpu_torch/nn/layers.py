@@ -46,6 +46,10 @@ __all__ = [
     "DWConvBnAct",
     "BasicBottleneck",
     "BottleneckCSP",
+    "SEBottleneckCSP",
+    "SqueezeExcitation",
+    "ELANBlock",
+    "dfl_integral",
     "C2f",
     "ConciseBottleneck",
     "C3BottleneckCSP",
@@ -111,7 +115,13 @@ class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d with eps 1e-3, momentum 0.03 and the reference's eval
     arithmetic (``x * mul + shift``). In training, f32 input takes torch's
     fused kernel (two-pass batch variance), low-precision input the
-    one-pass form of the JAX ``TorchBatchNorm`` (``_one_pass``)."""
+    one-pass form of the JAX ``TorchBatchNorm`` (``_one_pass``). With
+    ``global_batch`` set (``train/ddp.py::set_sync_bn``), training takes its
+    statistics over the global batch of every rank of the default process
+    group (``_global``), as the JAX package's pjit step does."""
+
+    # statistics over every rank's batch; False: this batch alone
+    global_batch = False
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__(channels, eps=eps, momentum=0.03)
@@ -126,6 +136,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return self._affine(x, self.running_mean, self.running_var)
         recompute = _RECOMPUTING.get()
+        if self.global_batch:
+            return self._global(x, recompute)
         if x.dtype != torch.float32:
             return self._one_pass(x, recompute)
         if not recompute:
@@ -148,6 +160,27 @@ class BatchNorm(nn.BatchNorm2d):
                 self.running_var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
                 self.num_batches_tracked.add_(1)
         return self._affine(x, mean, var)
+
+    def _global(self, x: torch.Tensor, recompute: bool) -> torch.Tensor:
+        """Training over the global batch: each rank's per-channel sums are
+        summed over the ranks (``parallel/dist.py::sum_over_ranks``, whose
+        backward sums the gradient's reductions over the ranks too). Two
+        passes in f32 (the mean, then the centred squares), the affine in
+        f32; every rank holds a batch of the same shape."""
+        from ..parallel.dist import process_count, sum_over_ranks
+
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * process_count()
+        mean = sum_over_ranks(xf.sum(dim=(0, 2, 3))) / n
+        centred = xf - mean[None, :, None, None]
+        var = sum_over_ranks(centred.square().sum(dim=(0, 2, 3))) / n
+        if not recompute:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+                self.num_batches_tracked.add_(1)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        return centred * mul[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class Conv2d(nn.Conv2d):
@@ -276,10 +309,13 @@ class C3BottleneckCSP(nn.Module):
 class BottleneckCSP(nn.Module):
     """Plain CSP block: a raw 1x1 side conv, ``cba1`` and the bottlenecks
     then a raw 1x1 ``mid_conv``, BN (eps 1e-5) over the concat, LeakyReLU
-    0.1, then ``cba2``. JAX names ``cv_side``/``cv_mid``/``cv1``/``cv2``."""
+    0.1, then ``cba2``. JAX names ``cv_side``/``cv_mid``/``cv1``/``cv2``.
+    ``se``: a ``SqueezeExcitation`` gate on the concat before the BN
+    (``SEBottleneckCSP``)."""
 
     def __init__(self, in_channels: int, out_channels: int, shortcut: bool = True,
-                 num_blocks: int = 1, generator: torch.Generator | None = None):
+                 num_blocks: int = 1, generator: torch.Generator | None = None,
+                 se: bool = False):
         super().__init__()
         mid = out_channels // 2
         self.side_conv = Conv2d(in_channels, mid, 1, bias=False)
@@ -291,6 +327,7 @@ class BottleneckCSP(nn.Module):
         )
         self.mid_conv = Conv2d(mid, mid, 1, bias=False)
         kaiming_fan_out_(self.mid_conv.weight, generator)
+        self.se = SqueezeExcitation(2 * mid, generator) if se else None
         self.bn = BatchNorm(2 * mid, eps=1e-5)
         self.cba2 = ConvBnAct(2 * mid, out_channels, 1, generator=generator)
 
@@ -300,7 +337,66 @@ class BottleneckCSP(nn.Module):
         for block in self.blocks:
             y1 = block(y1)
         y = torch.cat([self.mid_conv(y1), y2], dim=1)
+        if self.se is not None:
+            y = self.se(y)
         return self.cba2(F.leaky_relu(self.bn(y), 0.1).to(y.dtype))
+
+
+class SqueezeExcitation(nn.Module):
+    """SE gate: the channel means through a biased 1x1 conv ``fc``, a
+    sigmoid, times the input."""
+
+    def __init__(self, channels: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.fc = Conv2d(channels, channels, 1)
+        kaiming_fan_out_(self.fc.weight, generator)
+        nn.init.zeros_(self.fc.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.fc(x.mean(dim=(2, 3), keepdim=True)))
+
+
+class SEBottleneckCSP(BottleneckCSP):
+    """``BottleneckCSP`` with a ``SqueezeExcitation`` gate (``se``) before
+    its fuse BN."""
+
+    def __init__(self, in_channels: int, out_channels: int, shortcut: bool = True,
+                 num_blocks: int = 1, generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, shortcut, num_blocks, generator, se=True)
+
+
+class ELANBlock(nn.Module):
+    """YOLOv7's E-ELAN block: two 1x1 entries ``cba1``/``cba2``, ``depth``
+    chained 3x3 pairs ``cba3_{i}a``/``cba3_{i}b`` from ``cba2``, the taps
+    concatenated last first, then the 1x1 ``cba4``."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, depth: int = 2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.depth = depth
+        self.cba1 = ConvBnAct(in_channels, mid_channels, 1, generator=generator)
+        self.cba2 = ConvBnAct(in_channels, mid_channels, 1, generator=generator)
+        for i in range(depth):
+            setattr(self, f"cba3_{i}a", ConvBnAct(mid_channels, mid_channels, 3,
+                                                  generator=generator))
+            setattr(self, f"cba3_{i}b", ConvBnAct(mid_channels, mid_channels, 3,
+                                                  generator=generator))
+        self.cba4 = ConvBnAct(mid_channels * (2 + depth), out_channels, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cba2(x)
+        taps = [self.cba1(x), y]
+        for i in range(self.depth):
+            y = getattr(self, f"cba3_{i}b")(getattr(self, f"cba3_{i}a")(y))
+            taps.append(y)
+        return self.cba4(torch.cat(taps[::-1], dim=1))
+
+
+def dfl_integral(x: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+    """The DFL integral: a softmax over ``reg_max`` bins, then the expected
+    bin. x (..., 4 * reg_max) -> (..., 4)."""
+    probs = torch.softmax(x.reshape(*x.shape[:-1], 4, reg_max), dim=-1)
+    return (probs * torch.arange(reg_max, dtype=x.dtype, device=x.device)).sum(dim=-1)
 
 
 class Focus(nn.Module):

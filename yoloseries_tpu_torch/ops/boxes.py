@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["xyxy2xywh", "xywh2xyxy", "xyxy2xywhn", "tblr2xyxy", "xyxy2tblr"]
+__all__ = ["xyxy2xywh", "xywh2xyxy", "xyxy2xywhn", "xywhn2xyxy", "tblr2xyxy", "xyxy2tblr"]
 
 
 def xyxy2xywh(boxes: torch.Tensor) -> torch.Tensor:
@@ -33,6 +33,13 @@ def xyxy2xywhn(boxes: torch.Tensor, img_wh) -> torch.Tensor:
     scale = torch.tensor([w, h, w, h], dtype=dtype).to(boxes.device, non_blocking=True)
     return xyxy2xywh(boxes) / scale
 
+
+def xywhn2xyxy(boxes: torch.Tensor, img_wh) -> torch.Tensor:
+    """xywh normalized by the image size ``img_wh = (w, h)`` -> xyxy pixels."""
+    w, h = img_wh
+    dtype = boxes.dtype if boxes.is_floating_point() else torch.float32
+    scale = torch.tensor([w, h, w, h], dtype=dtype).to(boxes.device, non_blocking=True)
+    return xywh2xyxy(boxes * scale)
 
 
 def tblr2xyxy(tblr: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tensor:

@@ -5,15 +5,18 @@ by IoU, per-class cumulative P/R with confidence-interpolated curves,
 detection confusion matrix. Images where either the gt or the prediction
 set is empty are dropped before accumulation, as the reference does.
 
-Plotting is not ported; ``gather_across_processes`` is the identity on one
-process (ROADMAP A8 brings the cross-process merge).
+``gather_across_processes`` merges the per-prediction statistics of every
+rank of a ``torch.distributed`` run, so each rank's ``compute`` sees the
+whole val set; ``plot_metrics`` and ``ConfusionMatrix.plot`` draw with
+matplotlib, imported where they are called.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ConfusionMatrix", "DetectionMetrics", "pairwise_iou_np", "compute_tp", "compute_ap"]
+__all__ = ["ConfusionMatrix", "DetectionMetrics", "pairwise_iou_np", "compute_tp", "compute_ap",
+           "plot_metrics"]
 
 IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2 names it trapz
@@ -81,6 +84,28 @@ def _smooth(y: np.ndarray, f: float = 0.05) -> np.ndarray:
     return np.convolve(yp, np.ones(nf) / nf, mode="valid")
 
 
+def _allgather_rows(rows: np.ndarray) -> np.ndarray:
+    """All-gather a per-rank (N_r, D) float64 array with varying N_r, in
+    rank order: the lengths first, then the rows padded to the longest. The
+    rows cross as float64 (gloo and NCCL both carry it), so the confidences
+    sort as they would on one process."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    world = dist.get_world_size()
+    n = torch.tensor([rows.shape[0]], dtype=torch.int64, device=dev)
+    ns = [torch.zeros_like(n) for _ in range(world)]
+    dist.all_gather(ns, n)
+    ns = [int(x.item()) for x in ns]
+    pad = torch.zeros((max(max(ns), 1), rows.shape[1]), dtype=torch.float64, device=dev)
+    pad[:rows.shape[0]] = torch.from_numpy(np.ascontiguousarray(rows, np.float64)).to(dev)
+    parts = [torch.empty_like(pad) for _ in range(world)]
+    dist.all_gather(parts, pad)
+    return np.concatenate([p[:k].cpu().numpy() for p, k in zip(parts, ns)], axis=0)
+
+
 class DetectionMetrics:
     """Accumulate per-image (gt, pred) pairs and produce COCO-style metrics."""
 
@@ -88,6 +113,8 @@ class DetectionMetrics:
         self.style = style
         self.gts: list[np.ndarray] = []
         self.preds: list[np.ndarray] = []
+        # set by gather_across_processes(): the statistics of every rank
+        self._global: tuple | None = None
 
     def add_image(self, gt, pred):
         """gt: (N, 5) or None; pred: (M, 6) or None.
@@ -118,14 +145,28 @@ class DetectionMetrics:
         return tps, pred_all[:, 4], pred_all[:, 5], gt_all[:, 4]
 
     def gather_across_processes(self):
-        """Merge the statistics of every process before ``compute``. The
-        identity on one process; data parallelism is not ported yet
-        (ROADMAP A8). Returns self."""
+        """Merge every rank's statistics so that each rank's ``compute``
+        sees the whole val set (``evaluate()`` gives each rank a contiguous
+        part of it, so rank order is the one-process order). The per-image
+        matching (``compute_tp``) runs before the merge. The identity
+        without an initialized process group of more than one rank.
+        Returns self."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self
+        tps, conf, cls_, tar_cls = self._flatten()
+        t = tps.shape[1]
+        rows = _allgather_rows(np.concatenate([tps.astype(np.float64), conf[:, None],
+                                               cls_[:, None]], axis=1))
+        tar_cls = _allgather_rows(tar_cls[:, None])[:, 0]
+        self._global = (rows[:, :t].astype(bool), rows[:, t], rows[:, t + 1], tar_cls)
         return self
 
     def compute(self) -> dict:
         """Returns dict with map, map50, mp, mr plus per-class arrays."""
-        tps, conf, cls_, tar_cls = self._flatten()
+        tps, conf, cls_, tar_cls = (self._global if self._global is not None
+                                    else self._flatten())
         if len(tps) == 0 or len(tar_cls) == 0:
             return {
                 "map": 0.0, "map50": 0.0, "mp": 0.0, "mr": 0.0,
@@ -242,3 +283,71 @@ class ConfusionMatrix:
         for pi in range(len(pred)):
             if pi not in matched_pred:
                 self.matrix[int(pred[pi, 5]), self.nc] += 1
+
+    def plot(self, save_path, names=None):
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=(10, 10))
+        ax.imshow(self.matrix, cmap="Blues")
+        labels = (names or [str(i) for i in range(self.nc)]) + ["background"]
+        ax.set_xticks(range(self.nc + 1))
+        ax.set_yticks(range(self.nc + 1))
+        ax.set_xticklabels(labels, rotation=90)
+        ax.set_yticklabels(labels)
+        ax.set_xlabel("ground truth")
+        ax.set_ylabel("prediction")
+        for i in range(self.nc + 1):
+            for j in range(self.nc + 1):
+                if self.matrix[i, j]:
+                    ax.text(j, i, str(self.matrix[i, j]), ha="center", va="center")
+        fig.tight_layout()
+        fig.savefig(str(save_path), dpi=150)
+        plt.close(fig)
+
+
+def plot_metrics(metrics: dict, save_dir, cls2lab=None):
+    """The reference's PR curve (``PRCurve.png``: each class's 101-point
+    curve at IoU .5 and their mean) and per-class AP bars
+    (``AP_Per_Class.png``) of a ``DetectionMetrics.compute`` result, in
+    ``save_dir``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from pathlib import Path
+
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    xs = metrics["conf_axis"]
+    if metrics["pr_curves"]:
+        fig, ax = plt.subplots(1, 1, figsize=(9, 6), tight_layout=True)
+        ys = np.stack(metrics["pr_curves"], axis=1)
+        ax.plot(xs, ys, linewidth=1, color="grey")
+        ax.plot(xs, ys.mean(axis=1), linewidth=2, color="red",
+                label=f"all classes {metrics['map50']:.2f} mAP@0.5")
+        ax.set_ylabel("Precision")
+        ax.set_xlabel("Recall")
+        ax.set_xlim(0, 1)
+        ax.set_ylim(0, 1)
+        ax.set_title("Precision-Recall")
+        ax.legend(loc=0)
+        fig.savefig(str(save_dir / "PRCurve.png"), dpi=150)
+        plt.close(fig)
+
+    ap = metrics["ap"]
+    if len(ap):
+        apm = ap.mean(axis=1)
+        order = np.argsort(apm)
+        fig = plt.figure(figsize=[10, 10])
+        labels = [(cls2lab[int(metrics["unique_cls"][i])] if cls2lab
+                   else str(int(metrics["unique_cls"][i]))) for i in order]
+        plt.barh(labels, apm[order], height=0.8, align="center")
+        plt.xlabel("mAP")
+        plt.ylabel("Category")
+        plt.title(f"mAP {apm.mean():.3f}")
+        plt.tight_layout()
+        plt.savefig(str(save_dir / "AP_Per_Class.png"), dpi=150)
+        plt.close(fig)

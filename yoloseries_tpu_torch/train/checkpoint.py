@@ -6,8 +6,8 @@ Layout: ``ckpt_dir/<step>/state.pt`` (``torch.save`` of the model
 the step) and ``ckpt_dir/<step>/hyp.json`` (the JSON-able hyp entries), the
 newest ``keep`` steps kept. ``restore_weights`` loads a checkpoint's EMA
 (or raw) weights into a model for the ``val`` and ``detect`` entry points.
-Loading the JAX package's Orbax checkpoints needs JAX and is not done here
-(ROADMAP A10).
+Loading the JAX package's Orbax checkpoints needs JAX and is not done here:
+the bridge is ``.npz`` (``utils/weights.py``).
 """
 
 from __future__ import annotations

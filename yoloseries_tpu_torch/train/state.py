@@ -69,7 +69,8 @@ def resize_batch(img: torch.Tensor, ann: torch.Tensor, resize_to, base_hw):
 
 
 def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True,
-                    resize_to=None, base_hw=None, compute_dtype=torch.float32) -> Callable:
+                    resize_to=None, base_hw=None, compute_dtype=torch.float32,
+                    collective=None) -> Callable:
     """Build the train step ``(state, batch) -> (state, metrics)``.
 
     ``loss`` is a family loss ``loss_fn(preds, targets, balances) ->
@@ -84,7 +85,11 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
 
     ``metrics`` holds the mean over micro-batches of the loss dict and
     ``grad_norm``, the global norm of the averaged gradient before clipping,
-    as 0-dim tensors on the device: nothing is read back here."""
+    as 0-dim tensors on the device: nothing is read back here.
+
+    ``collective``: data parallelism (``train/ddp.py``), which reduces the
+    averaged gradients, the metrics and the balances over the ranks before
+    the optimizer update."""
     if isinstance(loss, YOLOv5LossConfig):
         cfg, anchors_t = loss, torch.as_tensor(anchors, dtype=torch.float32)
 
@@ -119,6 +124,9 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
             grads = [p.grad for p in state.optimizer.params() if p.grad is not None]
             if k > 1:
                 torch._foreach_div_(grads, float(k))
+            if collective is not None:
+                collective.grads(grads)
+                balances = collective.balances(balances)
             grad_norm = state.optimizer.step()
         if do_ema:
             with record_function("train.ema"):
@@ -127,6 +135,8 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
         state.balances = balances.detach()
         state.step += 1
         metrics = {n: torch.stack([h[n] for h in history]).mean() for n in history[0]}
+        if collective is not None:
+            metrics = collective.metrics(metrics)
         metrics["grad_norm"] = grad_norm
         return state, metrics
 

@@ -20,9 +20,30 @@
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; raises without
 a card. The model knobs of the JAX ``Trainer``: ``compute_dtype`` (bf16
 compute, f32 parameters, BN statistics, optimizer, EMA and loss sums),
-``cfg.remat`` and the hyp's ``s2d_stem``. Not ported yet, and raising when
-asked for: ``per_replica_bn`` (ROADMAP A8). TensorBoard, the profiler
-window and the model summary wait for A10.
+``cfg.remat`` and the hyp's ``s2d_stem``.
+
+Data parallelism (``train/ddp.py``), inside a process group of more than
+one rank (``parallel/dist.py::init_from_env``): ``cfg.batch_size`` is the
+global batch of one micro-batch, split evenly over the ranks (raises when
+it does not divide), and each rank loads only its rows of the batches one
+process would load. By default the step is one function of the global
+batch (BN over it, the loss's global terms summed: YOLOv5; another family
+raises ``NotImplementedError``, ROADMAP A8b); ``per_replica_bn: true``
+keeps each rank's BN statistics and averages the gradients. Rank 0 writes
+the checkpoints, TensorBoard, the profiler trace and the model summary;
+each rank writes ``log/log_rank_{rank}/train.log``. ``evaluate()`` scores a
+contiguous part of the val set on each rank and merges the statistics
+(``DetectionMetrics.gather_across_processes``).
+
+Observability: the hyp and the model summary (``utils/summary.py``) head
+the log; ``enable_tensorboard`` writes the metrics as scalars under
+``output_dir/tb`` (``torch.utils.tensorboard``; without the ``tensorboard``
+package it logs one line and goes on, as the JAX ``Trainer`` does) when
+they are read (the log points and the epoch ends, so the step gains no host
+sync); ``enable_profiler: n`` writes a
+``torch.profiler`` trace (with the card's activity on a card) of updates 1
+to n (update 0, which autotunes, left out) to ``output_dir/profile``; the
+JAX ``Trainer`` opens its trace at the same update.
 """
 
 from __future__ import annotations
@@ -44,8 +65,10 @@ from ..evaluation.yolov5 import Evaluator
 from ..families import get_family
 from ..models import create_model
 from ..ops.metrics import DetectionMetrics
+from ..parallel.dist import all_reduce_sum, process_count, process_index, shard_range
 from ..utils.meters import MeterBuffer
 from .checkpoint import restore_checkpoint, save_checkpoint
+from .ddp import GlobalBatch, PerReplica, set_sync_bn, sync_replica_stats
 from .optim import _group_schedule
 from .state import create_train_state, make_train_step
 
@@ -55,24 +78,33 @@ if TYPE_CHECKING:
 __all__ = ["Trainer"]
 
 
-def _check_ported(cfg: "TrainConfig") -> None:
-    """Raise for a setting that needs a module not ported yet."""
-    if cfg.hyp.get("per_replica_bn", False):
-        raise NotImplementedError("per_replica_bn (data parallelism) is not ported yet "
-                                  "(ROADMAP A8)")
-
-
 class Trainer:
     def __init__(self, cfg: "TrainConfig", train_dirs: tuple, val_dirs: tuple | None = None,
                  names_path=None, model_name: str | None = None,
                  compute_dtype=torch.float32, log_fn=print, device=None):
         self.device = resolve_device(device)
-        _check_ported(cfg)
         self.cfg = cfg
-        # per-rank log file: {output_dir}/log/log_rank_0/train.log
+        self.rank, self.world = process_index(), process_count()
+        self.per_replica_bn = bool(cfg.hyp.get("per_replica_bn", False))
+        if cfg.batch_size % self.world:
+            raise ValueError(f"the global batch {cfg.batch_size} does not split over "
+                             f"{self.world} ranks")
+        self.family = get_family(model_name or cfg.model, default=cfg.hyp.get("family"))
+        self._collective, self._loss_kw = None, {}
+        if self.world > 1:
+            if self.per_replica_bn:
+                self._collective = PerReplica()
+            elif not self.family.global_batch_loss:
+                raise NotImplementedError(
+                    f"the global-batch step of {self.family.name} over {self.world} ranks: "
+                    "its loss does not reduce its batch terms over the ranks yet (ROADMAP "
+                    "A8b); set per_replica_bn: true")
+            else:
+                self._collective, self._loss_kw = GlobalBatch(), {"reduce": all_reduce_sum}
+        # per-rank log file: {output_dir}/log/log_rank_{rank}/train.log
         self._log_file = None
         if cfg.hyp.get("save_log_txt", True):
-            log_dir = Path(cfg.output_dir) / "log" / "log_rank_0"
+            log_dir = Path(cfg.output_dir) / "log" / f"log_rank_{self.rank}"
             log_dir.mkdir(parents=True, exist_ok=True)
             self._log_file = open(log_dir / "train.log", "a", buffering=1)
 
@@ -91,10 +123,15 @@ class Trainer:
         if val_dirs is not None:
             self.val_dataset = DetectionDataset(val_dirs[0], val_dirs[1], names_path,
                                                 input_size=cfg.input_size, aug=cfg.aug)
+        # this rank's rows of each batch: of each micro-batch on the global
+        # batch's path, of the whole batch per replica (JAX's shard_map split)
+        part = None
+        if self.world > 1:
+            part = (self.rank, self.world, 1 if self.per_replica_bn else cfg.accumulate)
         self.train_loader = DataLoader(
             self.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
             max_labels=cfg.max_labels, seed=cfg.seed, workers=cfg.num_workers,
-            device_aug=cfg.device_aug, device_cache=cfg.device_cache)
+            device_aug=cfg.device_aug, device_cache=cfg.device_cache, part=part)
         # device_cache: the resized train set lives on the card, and a batch
         # brings only plan scalars and labels
         self._dev_cache = None
@@ -117,14 +154,16 @@ class Trainer:
         self.model = create_model(resolved_name, num_class=self.num_class, device="cpu",
                                   seed=cfg.seed, **model_kw)
         self._compute_dtype = compute_dtype
-        self.family = get_family(resolved_name, default=cfg.hyp.get("family"))
-        loss_fn, balances0 = self.family.make_loss(cfg.hyp, self.num_class, cfg.input_size)
+        if isinstance(self._collective, GlobalBatch):
+            set_sync_bn(self.model)
+        loss_fn, balances0 = self.family.make_loss(cfg.hyp, self.num_class, cfg.input_size,
+                                                   **self._loss_kw)
         decode_fn = self.family.make_decode(cfg.hyp, self.num_class, cfg.input_size)
         self.state = create_train_state(self.model, cfg.optim, balances=balances0,
                                         device=self.device)
         self._step_fns = {tuple(cfg.input_size): make_train_step(
             loss_fn, accumulate=cfg.accumulate, do_ema=cfg.do_ema,
-            compute_dtype=compute_dtype)}
+            compute_dtype=compute_dtype, collective=self._collective)}
 
         # multi-scale training: a fresh /32 size in [0.5x, 1.5x] of the base
         # each update; "interpolate" resizes the base-size batch on the card
@@ -158,10 +197,31 @@ class Trainer:
         # (global_it, data_t, iter_t, device metrics), read at log points
         self._pending = []
         self.history = []  # the metrics of every update, once read
+        self.last_eval = None  # the metrics of the last evaluate()
         self._val_loader = None
+
+        # TensorBoard scalars and the profiler window, on rank 0
+        self.writer = None
+        if cfg.hyp.get("enable_tensorboard") and self.rank == 0:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as err:  # the tensorboard package is optional
+                self.log(f"tensorboard disabled: {err}")
+            else:
+                self.writer = SummaryWriter(log_dir=str(Path(cfg.output_dir) / "tb"))
+        self._profile_steps = int(cfg.hyp.get("enable_profiler", 0) or 0) if self.rank == 0 else 0
+        self._profile_dir = Path(cfg.output_dir) / "profile"
+        self._profiler = None
+        # header: the hyp table, and on rank 0 the model summary
         if self._log_file is not None:
-            print("hyp: " + ", ".join(f"{k}={cfg.hyp[k]}" for k in sorted(cfg.hyp)),
-                  file=self._log_file)
+            from ..utils.summary import format_hyp_table, summarize_model
+
+            print(format_hyp_table(cfg.hyp), file=self._log_file)
+            if self.rank == 0:
+                s = summarize_model(self.model, (1, 3, *cfg.input_size))
+                print(f"model {resolved_name}: {s['params']:,} params, {s['param_bytes']:,} "
+                      f"bytes, {s['gflops']:.2f} GFLOPs (convolutions and matmuls) @ "
+                      f"{tuple(cfg.input_size)}", file=self._log_file)
 
     def _step_fn_for(self, size):
         """The train step of one multi-scale size. In interpolate mode the
@@ -171,15 +231,18 @@ class Trainer:
         if size not in self._step_fns:
             base = tuple(self.cfg.input_size)
             resize_to = size if self.multi_scale_mode == "interpolate" and size != base else None
-            loss_fn, _ = self.family.make_loss(self.cfg.hyp, self.num_class, size)
+            loss_fn, _ = self.family.make_loss(self.cfg.hyp, self.num_class, size,
+                                               **self._loss_kw)
             self._step_fns[size] = make_train_step(
                 loss_fn, accumulate=self.cfg.accumulate, do_ema=self.cfg.do_ema,
-                resize_to=resize_to, base_hw=base, compute_dtype=self._compute_dtype)
+                resize_to=resize_to, base_hw=base, compute_dtype=self._compute_dtype,
+                collective=self._collective)
         return self._step_fns[size]
 
     # ------------------------------------------------------------------ io
     def save(self, step: int):
-        save_checkpoint(self.ckpt_dir, self.state, step, hyp=self.cfg.hyp)
+        if self.rank == 0:
+            save_checkpoint(self.ckpt_dir, self.state, step, hyp=self.cfg.hyp)
 
     def load(self):
         self.state, step = restore_checkpoint(self.ckpt_dir, self.state)
@@ -232,10 +295,15 @@ class Trainer:
         names = sorted(pending[0][3])
         host = torch.stack([torch.stack([m[n].float() for n in names])
                             for (_, _, _, m) in pending]).cpu().tolist()
-        for (_, t_data, t_iter, _), values in zip(pending, host):
+        for (global_it, t_data, t_iter, _), values in zip(pending, host):
             values = dict(zip(names, values))
             self.history.append(values)
             self.meters.update(data_time=t_data, iter_time=t_iter, **values)
+            if self.writer is not None:
+                for k, v in values.items():
+                    self.writer.add_scalar(f"train/{k}", v, global_it)
+        if self.writer is not None:
+            self.writer.flush()
 
     def _log_progress(self, epoch, total, it, global_it):
         total_iters = total * self.steps_per_epoch
@@ -275,6 +343,8 @@ class Trainer:
                     elif global_it % 10 == 0:
                         self.train_loader.set_input_size(
                             int(self._ms_rng.choice(self.multi_scale_sizes)))
+                if self._profile_steps and global_it == 1:
+                    self._start_profiler()
                 t0 = time.time()
                 batch = self._device_batch(next(self.train_loader))
                 t_data = time.time() - t0
@@ -283,6 +353,8 @@ class Trainer:
                 self.state, metrics = self._step_fn_for(train_size)(self.state, batch)
                 # no host sync here: the metrics are read at log points
                 self._pending.append((global_it, t_data, time.time() - t0, metrics))
+                if self._profiler is not None and global_it == self._profile_steps:
+                    self._stop_profiler()
                 if self._log_every and (global_it + 1) % self._log_every == 0:
                     self._flush_metrics()
                     self._log_progress(epoch, total, it, global_it)
@@ -297,12 +369,32 @@ class Trainer:
                 self.save(self.state.step)
             if eval_fn is not None and (epoch + 1) % cfg.val_every == 0:
                 eval_fn(self)
+        if self._profiler is not None:  # the run ended inside the window
+            self._stop_profiler()
         return self.state
+
+    def _start_profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profiler(self):
+        self._profiler.stop()
+        self._profile_dir.mkdir(parents=True, exist_ok=True)
+        self._profiler.export_chrome_trace(str(self._profile_dir / "trace.json"))
+        self._profiler = None
+        self.log(f"profiler trace saved to {self._profile_dir}")
 
     # ---------------------------------------------------------------- eval
     def eval_variables(self) -> dict:
-        """The EMA ``state_dict`` if it is tracked, else the live one."""
-        return self.state.ema if self.cfg.do_ema else self.state.model.state_dict()
+        """The EMA ``state_dict`` if it is tracked, else the live one; per
+        replica, its BN running statistics averaged over the ranks first."""
+        sd = self.state.ema if self.cfg.do_ema else self.state.model.state_dict()
+        if self.per_replica_bn and self.world > 1:
+            sd = sync_replica_stats(sd)
+        return sd
 
     def _accumulate_eval(self, metrics, dets, batch):
         """One batch's detections to the host, (gt, pred) pairs added."""
@@ -321,14 +413,21 @@ class Trainer:
             metrics.add_image(g, preds[i])
 
     def evaluate(self, max_batches: int | None = None) -> dict:
-        """mAP over the val set at the protocol thresholds."""
+        """mAP over the val set at the protocol thresholds; with more than
+        one rank, each scores its contiguous part of the set in batches of
+        ``batch_size / world`` and the statistics are merged in rank
+        order."""
         if self.val_dataset is None:
             raise ValueError("evaluate() needs val dirs")
         if self._val_loader is None:
+            batch = self.cfg.batch_size // self.world
+            dataset = self.val_dataset
+            if self.world > 1:
+                dataset = dataset.subset(*shard_range(len(dataset), batch, self.rank,
+                                                      self.world))
             self._val_loader = DataLoader(
-                self.val_dataset, batch_size=self.cfg.batch_size,
-                max_labels=self.cfg.max_labels, workers=self.cfg.num_workers,
-                shuffle=False, infinite=False, enable_aug=False)
+                dataset, batch_size=batch, max_labels=self.cfg.max_labels,
+                workers=self.cfg.num_workers, shuffle=False, infinite=False, enable_aug=False)
         else:
             self._val_loader.restart()
         self._eval_model.load_state_dict(self.eval_variables())
@@ -347,11 +446,15 @@ class Trainer:
         out = metrics.gather_across_processes().compute()
         self.log(f"mAP {out['map']:.4f} mAP50 {out['map50']:.4f} "
                  f"P {out['mp']:.4f} R {out['mr']:.4f}")
+        self.last_eval = out
         return out
 
     def close(self):
-        """Stop the loaders' workers and close the log file."""
+        """Stop the loaders' workers and close the log file and the event
+        file."""
         self.train_loader.stop()
+        if self.writer is not None:
+            self.writer.close()
         if self._val_loader is not None:
             self._val_loader.stop()
             self._val_loader = None

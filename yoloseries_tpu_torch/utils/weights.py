@@ -26,8 +26,12 @@ GroupNorm ``scale``/``bias`` (the reference names them ``bn``) and its
 ``Scale`` scalars. YOLOX's DarkNet models and FCOS on the CSP trunk have no
 reference converter: DarkNet's backbone and neck take the JAX module paths
 as names (see ``models/yolox.py``), FCOS-CSPNet's trunk YOLOv5's names
-under ``trunk.``, and they convert one way only, JAX to the port. The model
-is told apart by the tree's top-level modules.
+under ``trunk.``, and they convert one way only, JAX to the port. The crop
+classifier (``models/classifier.py``) maps its ResNet as RetinaNet's and its
+``Dense`` head to ``fc`` (the kernel transposed). The model is told apart by
+the tree's top-level modules; a single block (``ELANBlock``,
+``SEBottleneckCSP``, ...) is converted with ``family="block"``: the YOLOv5
+trunk's names inside a block, ``se.fc`` for the SE gate.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "state_dict_key", "flatten_tree", "unflatten_tree"]
+__all__ = ["state_dict_from_jax", "state_dict_key", "flatten_tree", "unflatten_tree",
+           "read_torch_blob", "strip_ddp_prefix", "load_blob_weights"]
 
 _TRUNK = {
     "stem": "focus",
@@ -217,6 +222,10 @@ def _fcos_head_name(inner) -> str:
 def _module_name(path: tuple, family: str = "yolov5", tower_depth: int = 1) -> str:
     """Flax module path (without the leaf) -> the port's module name."""
     top, *inner = path
+    if family == "block":
+        return _v5_inner([], path)
+    if family == "classifier":
+        return "fc" if top == "fc" else _resnet_name(top, inner)
     if family == "yolov7":
         return _v7_name(top, inner)
     if family in ("retinanet", "fcos", "fcos_cspnet"):
@@ -263,6 +272,8 @@ def _family_of_tree(params: dict) -> str:
     "fcos_cspnet", by its top-level modules."""
     if "stem1" in params:
         return "yolov8"
+    if "fc" in params and "backbone" in params:
+        return "classifier"
     if "rep_s" in params:
         return "yolov7"
     if "classification" in params:
@@ -287,18 +298,21 @@ def state_dict_key(path: tuple, family: str = "yolov5", tower_depth: int = 1) ->
     return f"{name}.{_LEAF[leaf]}"
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+def state_dict_from_jax(params: dict, batch_stats: dict, family: str | None = None) -> dict:
     """(params, batch_stats) of a JAX ``YOLOv5``, ``YOLOX``,
-    ``YOLOXDarknet``, ``YOLOv8``, ``YOLOv7``, ``RetinaNet``, ``FCOS`` or
-    ``FCOSCSPNet`` -> port ``state_dict`` (name -> float32 tensor, plus
+    ``YOLOXDarknet``, ``YOLOv8``, ``YOLOv7``, ``RetinaNet``, ``FCOS``,
+    ``FCOSCSPNet`` or ``CropClassifier`` (or of one block, with
+    ``family="block"``) -> port ``state_dict`` (name -> float32 tensor, plus
     ``num_batches_tracked`` per BatchNorm)."""
-    family = _family_of_tree(params)
+    family = family or _family_of_tree(params)
     depth = sum(k.startswith("cls_tower") for k in params.get("head0", {}))
     sd = {}
     for path, value in flatten_tree(params).items():
         value = np.asarray(value, dtype=np.float32)
-        if path[-1] == "kernel":  # HWIO -> OIHW
+        if path[-1] == "kernel" and value.ndim == 4:  # HWIO -> OIHW
             value = value.transpose(3, 2, 0, 1)
+        elif path[-1] == "kernel":  # a Dense (in, out) -> (out, in)
+            value = value.T
         elif path[-1] == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
             value = value.transpose(0, 3, 1, 2)
         sd[state_dict_key(path, family, depth)] = torch.from_numpy(value.copy())
@@ -307,3 +321,53 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         sd[key] = torch.from_numpy(np.asarray(value, dtype=np.float32).copy())
         sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def strip_ddp_prefix(state_dict: dict) -> dict:
+    """Drop the ``module.`` prefix that DistributedDataParallel adds."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}
+
+
+def read_torch_blob(path) -> dict:
+    """A reference ``.pth``: the ``Training.save_model`` dict
+    (``model_state_dict``, ``ema``, ``hyp``, ``step``) or a bare
+    ``state_dict``. Returns {raw, ema (None when the blob has none), hyp,
+    step} with the ``module.`` prefixes stripped. The port's modules carry
+    the reference's ``state_dict`` names, so ``raw`` and ``ema`` load into a
+    port model as they are. Loaded with ``weights_only=True``: a blob of
+    tensors, numbers, strings and containers."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and "model_state_dict" in blob:
+        raw, ema = blob["model_state_dict"], blob.get("ema")
+        hyp, step = dict(blob.get("hyp") or {}), int(blob.get("step") or 0)
+    else:
+        raw, ema, hyp, step = blob, None, {}, 0
+    return {"raw": strip_ddp_prefix(raw), "ema": None if ema is None else strip_ddp_prefix(ema),
+            "hyp": hyp, "step": step}
+
+
+def load_blob_weights(model: torch.nn.Module, path, params: str = "ema") -> None:
+    """Load weights from a file into ``model`` (strictly): an ``.npz`` of
+    the JAX package's trees (``params/...`` and ``batch_stats/...`` paths
+    joined by ``/``), or a ``.pt``/``.pth`` blob of ``read_torch_blob``,
+    its EMA weights (``params="ema"``, the raw ones when it has no EMA) or
+    its raw ones (``"raw"``). A 6x6 stem kernel is mapped to a model built
+    with ``s2d_stem=True``."""
+    from pathlib import Path
+
+    from ..nn.deploy import fold_stem_to_s2d
+
+    if params not in ("ema", "raw"):
+        raise ValueError(f"params {params!r}: 'ema' or 'raw'")
+    path = Path(path)
+    if path.suffix == ".npz":
+        with np.load(path) as data:
+            tree = unflatten_tree({tuple(k.split("/")): data[k] for k in data.files})
+        sd = state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
+    else:
+        blob = read_torch_blob(path)
+        sd = blob["ema"] if params == "ema" and blob["ema"] is not None else blob["raw"]
+    if any(getattr(m, "s2d_stem", False) for m in model.modules()):
+        sd = fold_stem_to_s2d(sd)
+    model.load_state_dict(sd)
