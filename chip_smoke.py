@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU: YOLOv5s serving and training,
-the YOLOv5 knobs, the anchor-free YOLOX and YOLOv8 families, and YOLOv7,
-RetinaNet and FCOS.
+the YOLOv5 knobs, the anchor-free YOLOX and YOLOv8 families, YOLOv7,
+RetinaNet and FCOS, and the JAX package's checkpoints.
 
     python3 chip_smoke.py
 
@@ -190,8 +190,23 @@ Phases (any failure exits non-zero and prints no result line):
    ``Trainer`` with ``enable_tensorboard`` and ``enable_profiler: 2`` for 3
    updates, the event file and the trace's kernel events present and 0
    host syncs in an update; its rows on a ``{"dist_and_tools": ...}`` line;
+15. the JAX package's Orbax checkpoints without JAX, orbax, tensorstore or
+   zstandard (``utils/orbax.py``; whether those are importable is printed
+   for the record): the committed fixture ``tests/data/orbax_v5_tiny``
+   (written by the JAX package's ``save_checkpoint``: OCDBT, zstd) read and
+   every array held to its sha256 in ``digests.json``, with the read time
+   and bytes; the decoder's rate on ``tests/data/zstd_weights_level1.zst``
+   (256 KB of N(0, 0.02) float32 at zstd level 1: Huffman literals, as
+   tensorstore writes weights), best of 3; a seeded yolov5s ``TrainState``
+   (nc=80, 640, full width and depth, detect convs widened, a distinct raw
+   model, a trace) written in orbax's plain layout by ``tests/torch_port_orbax_writer.py`` (numpy,
+   raw zstd blocks), then ``cli/val.py --ckpt-dir`` on it against
+   ``cli/val.py --weights`` on a ``.pt`` of its EMA weights, 16 PNGs at
+   B=16: identical detections and mAP line, B1 launched (K=4096) and held
+   against its twin at val's candidates, the EMA's read time and bytes; its
+   rows on an ``{"orbax": ...}`` line;
 then one ``{"kernels": [...]}`` line, with a summary per kernel of phase
-13's rows and phase 14's launches counted.
+13's rows and phase 14's and 15's launches counted.
 
 The last lines are the card's ``nvidia-smi`` name and power limit and then
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (cuDNN and
@@ -3979,6 +3994,173 @@ def phase_dist_and_tools(card, phase8_ms):
     return out
 
 
+def _load_test_module(name):
+    """A helper module of ``tests/`` (numpy only), by its path."""
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_orbax(card):
+    """Phase 15: the JAX package's Orbax checkpoints read without JAX,
+    orbax, tensorstore or zstandard (``utils/orbax.py``): (a) the committed
+    fixture that the JAX package's ``save_checkpoint`` wrote (tensorstore's
+    OCDBT and zstd bytes), every array against its committed sha256; (b) a
+    seeded yolov5s ``TrainState`` at full width (nc=80, detect convs widened,
+    a distinct raw model) in orbax's plain layout (the numpy test writer),
+    then ``cli/val.py --ckpt-dir`` on it against ``cli/val.py --weights`` on a
+    ``.pt`` of its EMA weights: identical detections and mAP line, B1
+    launched and held against its twin at val's candidates."""
+    import hashlib
+    import io
+
+    from yoloseries_tpu_torch.cli.val import main as val_main
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state
+    from yoloseries_tpu_torch.utils import orbax
+
+    t_phase = time.perf_counter()
+    out, launches, seconds = {}, {}, {}
+    reads = []  # (seconds, bytes) of every read_tree call
+    read_tree = orbax.read_tree
+
+    def timed_read(*args, **kwargs):
+        stats = {}
+        t0 = time.perf_counter()
+        tree = read_tree(*args, stats=stats, **kwargs)
+        reads.append((time.perf_counter() - t0, stats["bytes_read"]))
+        return tree
+
+    # (a) the committed fixture
+    t0 = time.perf_counter()
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("orbax", "tensorstore", "zstandard")}
+    fixture = Path(__file__).resolve().parent / "tests" / "data" / "orbax_v5_tiny"
+    digests = json.loads((fixture / "digests.json").read_text())
+    orbax.read_tree = timed_read
+    try:
+        tree = orbax.read_tree(fixture / "1")
+    finally:
+        orbax.read_tree = read_tree
+    got = {}
+    for path, value in _leaves(tree):
+        got[path] = None if value is None else {
+            "sha256": hashlib.sha256(np.asarray(value, order="C").tobytes()).hexdigest(),
+            "shape": list(np.shape(value)), "dtype": np.asarray(value).dtype.str}
+    differ = sorted(k for k in set(got) | set(digests) if got.get(k, "absent") != digests.get(
+        k, "absent"))
+    arrays = sum(v is not None for v in digests.values())
+    log(f"  the committed JAX fixture ({arrays} arrays, {len(digests) - arrays} masked leaves): "
+        f"read in {reads[0][0]:.3f} s, {reads[0][1]} bytes; {len(differ)} leaves differ from "
+        f"their committed sha256; importable here (for the record): {installed} [{card}]")
+    if differ:
+        fail(f"the fixture read differs from its digests at {differ[:5]}")
+    # the decoder's hot path: tensorstore-like level-1 frames of N(0, 0.02)
+    # weights, every block 4-stream Huffman literals
+    from yoloseries_tpu_torch.utils.zstd import decompress
+
+    fixture_mod = _load_test_module("torch_port_orbax_fixture")
+    frame = fixture_mod.SAMPLE.read_bytes()
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        content = decompress(frame)
+        times.append(time.perf_counter() - t1)
+    decode_s = min(times)
+    rate = len(content) / decode_s / 1e6
+    ok = hashlib.sha256(content).hexdigest() == fixture_mod.SAMPLE_SHA256
+    log(f"  zstd decode of {len(frame)} bytes (level 1, N(0, 0.02) float32) to {len(content)}: "
+        f"best of 3 {decode_s:.3f} s, {rate:.2f} MB/s (host), content sha256 matches: {ok}; "
+        f"a yolov5s EMA (29,072,437 bytes) at that rate: {29_072_437 / 1e6 / rate:.1f} s "
+        f"[{card}]")
+    if not ok:
+        fail("the zstd sample decodes to other bytes")
+    out["fixture"] = {"arrays": arrays, "seconds": reads[0][0], "bytes": reads[0][1],
+                      "differ": len(differ), "installed": installed,
+                      "zstd_decode_s": decode_s, "zstd_mb_per_s": rate}
+    seconds["fixture"] = time.perf_counter() - t0
+
+    # (b) yolov5s at full width in orbax's layout, val --ckpt-dir vs --weights
+    t0 = time.perf_counter()
+    writer = _load_test_module("torch_port_orbax_writer")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    gen = torch.Generator().manual_seed(0)
+    calib = torch.randint(0, 256, (2, 3, 320, 320), generator=gen).float() / 255
+    model = create_model("yolov5s", num_class=80, device="cpu", seed=0)
+    widen_head(model, calib)
+    state = create_train_state(model, OptimizerConfig(), device="cpu")  # EMA = these weights
+    with torch.no_grad():
+        for name in ("detect_small", "detect_mid", "detect_large"):
+            getattr(model.detect, name).weight.mul_(0.8)  # the raw model differs
+        for group in state.optimizer.state.values():
+            for t in group["trace"]:
+                t.normal_(0, 1e-3, generator=gen)
+    state.optimizer.counts = {g: 7 for g in state.optimizer.counts}
+    state.step, state.ema_count = 7, 7.0
+    t_write = time.perf_counter()
+    writer.write_step(tmp / "ck", 7, writer.yolov5_train_state_tree(state),
+                      hyp={"batch_size": 64})
+    t_write = time.perf_counter() - t_write
+    torch.save(state.ema, tmp / "ema.pt")
+    written = sum(p.stat().st_size for p in (tmp / "ck").rglob("*") if p.is_file())
+    val_dirs = synthetic_folder(tmp / "val", 16, seed=24)
+    common = ["--model", "yolov5s", "--val-img-dir", str(val_dirs[0]), "--val-lab-dir",
+              str(val_dirs[1]), "--name-path", str(val_dirs[2]), "--batch-size", "16",
+              "--device", "cuda"]
+    lines, results, captured = {}, {}, None
+    for label, source in (("ckpt", ["--ckpt-dir", str(tmp / "ck")]),
+                          ("weights", ["--weights", str(tmp / "ema.pt")])):
+        zero_counters()
+        printed = io.StringIO()
+        orbax.read_tree = timed_read
+        try:
+            with record_nms_inputs() as rec, contextlib.redirect_stdout(printed):
+                results[label] = val_main([*source, "--save-pkl-dir", str(tmp / label), *common])
+        finally:
+            orbax.read_tree = read_tree
+        path = read_counters()
+        add_launches(launches, path)
+        bad, kept, live = greedy_mismatches(rec["nms_greedy"])
+        captured = captured or rec["nms_greedy"][0]
+        lines[label] = printed.getvalue().strip().splitlines()
+        log(f"  cli/val.py {' '.join(source[:1])}: {lines[label][-1]}; launches {path}; "
+            f"nms_greedy {live} live, {kept} kept, {bad} mismatches [{card}]")
+        if path["nms_greedy"] == 0 or bad or kept == 0:
+            fail(f"val {label}: B1 not launched, a twin mismatch or nothing kept")
+    read_s, read_bytes = reads[-1]
+    same = same_detections(read_pickles(tmp / "ckpt"), read_pickles(tmp / "weights"))
+    loaded = "loaded checkpoint at step 7" in lines["ckpt"]
+    log(f"  yolov5s TrainState in orbax's layout: {written} bytes written in {t_write:.2f} s; "
+        f"val --ckpt-dir read its EMA in {read_s:.3f} s ({read_bytes} bytes, "
+        f"{read_bytes / read_s / 1e6:.1f} MB/s, host); detections identical to --weights: "
+        f"{same}; mAP lines equal: {lines['ckpt'][-1] == lines['weights'][-1]} [{card}]")
+    if not (same and loaded and lines["ckpt"][-1] == lines["weights"][-1]
+            and all(results["ckpt"][k] == results["weights"][k] for k in ("map", "map50"))):
+        fail("val --ckpt-dir on the Orbax layout and val --weights disagree")
+    out["full_width"] = {"written_bytes": written, "write_s": t_write, "read_s": read_s,
+                         "read_bytes": read_bytes, "identical": same,
+                         "map": results["ckpt"]["map"], "map50": results["ckpt"]["map50"]}
+    seconds["val"] = time.perf_counter() - t0
+    tmp_dir.cleanup()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 15: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); launches {launches} [{card}]")
+    out.update(launches=launches, seconds=seconds, phase_s=wall)
+    return out
+
+
+def _leaves(tree, prefix=""):
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            yield from _leaves(value, path)
+        else:
+            yield path, value
+
+
 def kernel_summary(rows):
     """At most one summary per kernel of a phase's per-path rows: the paths,
     the launches on them, the slowest device time and its bound."""
@@ -4085,6 +4267,12 @@ def main():
                for k in ("ms_per_update", "peak_gib")}
         | {k: digits(v) for k, v in by_run["global_vs_one_rel"].items()}
         for name, by_run in dist["dist"]["families"].items()}}, separators=(",", ":")))
+    log("== 15. the JAX package's Orbax checkpoints without JAX: the committed fixture, "
+        "val --ckpt-dir at full width")
+    orbax_phase = phase_orbax(card)
+    print(json.dumps({"orbax": orbax_phase}, separators=(",", ":"), default=str))
+    for row in rows:
+        row["launches"] += orbax_phase["launches"].get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}, separators=(",", ":")))  # compact: ~20 KB
     print(card)

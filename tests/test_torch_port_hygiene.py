@@ -2,8 +2,11 @@
 
 * Importing every port module (in a fresh interpreter) leaves ``jax``,
   ``flax`` and the JAX package ``yoloseries_tpu`` (the exact module name:
-  it is a prefix of ``yoloseries_tpu_torch``) out of ``sys.modules``; no
-  source of the port or ``chip_smoke.py`` imports them.
+  it is a prefix of ``yoloseries_tpu_torch``), and the packages beneath the
+  JAX package's checkpoints (``orbax``, ``tensorstore``, ``zstandard``,
+  ``numcodecs``), out of ``sys.modules``; no source of the port or
+  ``chip_smoke.py`` imports them; reading the committed Orbax fixture into
+  a port train state loads none of them either.
 * Importing the port needs no ``yaml`` and no ``cv2`` (``load_hyp`` imports
   yaml; the augmenters and the image cache import cv2 where they call it).
 * Entry points raise when no card is visible unless given ``device="cpu"``.
@@ -22,7 +25,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "yoloseries_tpu_torch"
-BANNED = ("jax", "flax", "yoloseries_tpu")
+BANNED = ("jax", "flax", "yoloseries_tpu", "orbax", "tensorstore", "zstandard", "numcodecs")
 
 
 def _is_banned(name: str) -> bool:
@@ -38,13 +41,37 @@ def _port_modules():
     return mods
 
 
+_BANNED_LOADED = (f"BANNED = {BANNED!r}\n"
+                  "bad = [m for m in sys.modules if m in BANNED\n"
+                  "       or m.startswith(tuple(b + '.' for b in BANNED))]\n")
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'yoloseries_tpu')\n"
-            "       or m.startswith(('jax.', 'flax.', 'yoloseries_tpu.'))]\n"
+            + _BANNED_LOADED +
             "bad += [m for m in ('yaml', 'cv2') if m in sys.modules]\n"
+            "print('BAD', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_reading_an_orbax_checkpoint_loads_no_jax():
+    """``restore_checkpoint`` of the committed fixture (an Orbax step the
+    JAX package wrote) into a port train state, in a fresh interpreter."""
+    code = ("import sys\n"
+            "from yoloseries_tpu_torch.models import YOLOv5, YOLOv5Spec\n"
+            "from yoloseries_tpu_torch.train import OptimizerConfig, create_train_state, "
+            "restore_checkpoint\n"
+            "state = create_train_state(YOLOv5(1, YOLOv5Spec(1, (0, 0, 0, 0), 0)), "
+            "OptimizerConfig(), device='cpu')\n"
+            "state, step = restore_checkpoint('tests/data/orbax_v5_tiny', state)\n"
+            "assert step == 1 == state.step, step\n"
+            + _BANNED_LOADED +
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -5,7 +5,8 @@
 
 Weights come from exactly one of ``--ckpt-dir`` (the EMA weights of the
 newest checkpoint that the port's ``cli/train.py`` or ``cli/import_torch.py``
-wrote) and ``--weights``: a reference ``.pth`` (its EMA weights when it has
+wrote, or the JAX package's Orbax step there: ``train/checkpoint.py``) and
+``--weights``: a reference ``.pth`` (its EMA weights when it has
 them), a port ``state_dict`` saved with ``torch.save`` (``.pt``) or the JAX
 package's trees in an ``.npz`` whose keys are ``params/...`` and
 ``batch_stats/...`` paths joined by ``/``

@@ -9,7 +9,9 @@ The arguments of the JAX package's ``cli/train.py``, plus ``--device``
 (default ``cuda``: no card is an error unless ``--device cpu``). The class
 count comes from ``--name-path``, else from the train set's labels.
 Checkpoints go to ``<output-dir>/checkpoints/<step>/state.pt``; ``cli/val.py``
-and ``cli/detect.py --ckpt-dir`` read them. ``--bf16`` computes in bfloat16
+and ``cli/detect.py --ckpt-dir`` read them. ``--resume`` takes the newest
+step there, the port's or the JAX package's Orbax step
+(``train/checkpoint.py``), and goes on from its epoch. ``--bf16`` computes in bfloat16
 (parameters stay f32); ``--set remat=true`` recomputes each CSP block in the
 backward; ``--set s2d_stem=true`` trains the space-to-depth stem (then pass
 the same hyp to ``val`` and ``--s2d-stem`` to ``detect``).

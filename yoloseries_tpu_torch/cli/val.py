@@ -7,7 +7,8 @@ The arguments of the JAX package's ``cli/val.py``, plus ``--device``
 (default ``cuda``: no card is an error unless ``--device cpu``) and
 ``--weights``. The weights come from exactly one of ``--ckpt-dir`` (the
 newest checkpoint that the port's ``cli/train.py`` or ``cli/import_torch.py``
-wrote, restored into a train state) and ``--weights`` (a reference ``.pth``,
+wrote, restored into a train state, or the JAX package's Orbax step there:
+``train/checkpoint.py``) and ``--weights`` (a reference ``.pth``,
 a port ``state_dict`` or an ``.npz`` of JAX trees:
 ``utils/weights.py::load_blob_weights``); their EMA weights (``--params
 ema``, the default) or their trained ones (``raw``) are scored at the protocol

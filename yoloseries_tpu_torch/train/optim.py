@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 __all__ = ["OptimizerConfig", "Optimizer", "build_optimizer", "lr_schedule_factor",
-           "param_group_label", "GROUPS"]
+           "param_group_label", "optimizer_state_from_jax", "GROUPS"]
 
 GROUPS = ("weight", "other", "bias")
 _f32 = np.float32
@@ -239,3 +239,67 @@ class Optimizer:
 
 def build_optimizer(cfg: OptimizerConfig, model: nn.Module) -> Optimizer:
     return Optimizer(cfg, model)
+
+
+def _find(tree, want):
+    """The first dict in ``tree`` (depth first) for which ``want`` holds."""
+    if not isinstance(tree, dict):
+        return None
+    if want(tree):
+        return tree
+    for v in tree.values():
+        found = _find(v, want)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_state_from_jax(opt_state: dict, optimizer: Optimizer, model: nn.Module,
+                             params: dict) -> dict:
+    """The JAX package's optax state -> ``optimizer.load_state_dict``'s
+    argument.
+
+    ``opt_state`` is the tree as ``utils/orbax.py::read_tree`` reads it:
+    ``"0"`` the clip's empty state, then ``"1"/"inner_states"/<group>``, a
+    masked ``inject_hyperparams`` state (behind the weight decay's empty
+    state where the group decays) whose ``count`` is the group's update
+    count and whose inner state holds ``trace`` (SGD) or ``mu``/``nu``
+    (Adam), each a tree shaped like ``params`` with ``None`` at the other
+    groups' leaves. Each leaf goes through its ``state_dict`` key to the
+    port parameter and its index in the group; a leaf of a parameter that
+    ``param_group_label`` puts in another group raises, as does a parameter
+    left without a slot. ``params`` (the JAX parameter tree) gives the
+    family and tower depth of the names."""
+    from ..utils.weights import flatten_tree, jax_tree_layout, param_from_jax, state_dict_key
+
+    family, depth = jax_tree_layout(params)
+    slots = ("trace",) if optimizer.kind == "sgd" else ("mu", "nu")
+    names = {id(p): n for n, p in model.named_parameters()}
+    where = {names[id(p)]: (g, i) for g in GROUPS for i, p in enumerate(optimizer.groups[g])}
+    state = {g: {k: [None] * len(optimizer.groups[g]) for k in slots} for g in GROUPS}
+    counts = {}
+    groups = opt_state["1"]["inner_states"]
+    for g in GROUPS:
+        inject = _find(groups[g], lambda d: "hyperparams" in d and "count" in d)
+        inner = inject and _find(inject["inner_state"], lambda d: all(k in d for k in slots))
+        if inner is None:
+            raise ValueError(f"the checkpoint's {g!r} group has no {'/'.join(slots)} state: "
+                             f"not a {optimizer.kind} optimizer")
+        counts[g] = int(inject["count"])
+        for k in slots:
+            for path, value in flatten_tree(inner[k]).items():
+                if value is None:  # masked: the parameter is in another group
+                    continue
+                name = state_dict_key(path, family, depth)
+                if name not in where:
+                    raise KeyError(f"optimizer leaf {'/'.join(path)} ({name}) is no parameter "
+                                   "of the model")
+                got, i = where[name]
+                if got != g:
+                    raise ValueError(f"{name}: the checkpoint's optimizer has it in the {g!r} "
+                                     f"group, param_group_label in {got!r}")
+                state[g][k][i] = param_from_jax(path, value)
+    missing = [n for n, (g, i) in where.items() if any(state[g][k][i] is None for k in slots)]
+    if missing:
+        raise ValueError(f"no optimizer state in the checkpoint for {missing[:5]}")
+    return {"counts": counts, "state": state}

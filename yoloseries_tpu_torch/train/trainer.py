@@ -15,7 +15,9 @@
   there;
 * ``evaluate()``: mAP over the val set on the EMA weights, at the protocol
   config (conf .001, iou .65, K=4096: the NMS runs in B1, ``nms_greedy``);
-* ``save()`` / ``load()``: checkpoints of the whole train state.
+* ``save()`` / ``load()``: checkpoints of the whole train state; ``load()``
+  also takes the JAX package's Orbax steps (``train/checkpoint.py``) and
+  resumes at ``step // steps_per_epoch``, as JAX does.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; raises without
 a card. The model knobs of the JAX ``Trainer``: ``compute_dtype`` (bf16

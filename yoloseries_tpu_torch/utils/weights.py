@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "state_dict_key", "flatten_tree", "unflatten_tree",
-           "read_torch_blob", "strip_ddp_prefix", "load_blob_weights"]
+           "jax_tree_layout", "param_from_jax", "read_torch_blob", "strip_ddp_prefix",
+           "load_blob_weights"]
 
 _TRUNK = {
     "stem": "focus",
@@ -298,24 +299,37 @@ def state_dict_key(path: tuple, family: str = "yolov5", tower_depth: int = 1) ->
     return f"{name}.{_LEAF[leaf]}"
 
 
+def jax_tree_layout(params: dict, family: str | None = None) -> tuple:
+    """(family, FCOS/YOLOX tower depth) of a JAX parameter tree: what
+    ``state_dict_key`` needs besides a path."""
+    family = family or _family_of_tree(params)
+    return family, sum(k.startswith("cls_tower") for k in params.get("head0", {}))
+
+
+def param_from_jax(path: tuple, value) -> torch.Tensor:
+    """One JAX parameter leaf (or a slot of the optimizer state shaped like
+    it) in the port's layout: conv kernels HWIO -> OIHW, a Dense kernel
+    transposed, an implicit prior (1, 1, 1, C) -> (1, C, 1, 1)."""
+    value = np.asarray(value, dtype=np.float32)
+    if path[-1] == "kernel" and value.ndim == 4:
+        value = value.transpose(3, 2, 0, 1)
+    elif path[-1] == "kernel":
+        value = value.T
+    elif path[-1] == "implicit":
+        value = value.transpose(0, 3, 1, 2)
+    return torch.from_numpy(value.copy())
+
+
 def state_dict_from_jax(params: dict, batch_stats: dict, family: str | None = None) -> dict:
     """(params, batch_stats) of a JAX ``YOLOv5``, ``YOLOX``,
     ``YOLOXDarknet``, ``YOLOv8``, ``YOLOv7``, ``RetinaNet``, ``FCOS``,
     ``FCOSCSPNet`` or ``CropClassifier`` (or of one block, with
     ``family="block"``) -> port ``state_dict`` (name -> float32 tensor, plus
     ``num_batches_tracked`` per BatchNorm)."""
-    family = family or _family_of_tree(params)
-    depth = sum(k.startswith("cls_tower") for k in params.get("head0", {}))
+    family, depth = jax_tree_layout(params, family)
     sd = {}
     for path, value in flatten_tree(params).items():
-        value = np.asarray(value, dtype=np.float32)
-        if path[-1] == "kernel" and value.ndim == 4:  # HWIO -> OIHW
-            value = value.transpose(3, 2, 0, 1)
-        elif path[-1] == "kernel":  # a Dense (in, out) -> (out, in)
-            value = value.T
-        elif path[-1] == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
-            value = value.transpose(0, 3, 1, 2)
-        sd[state_dict_key(path, family, depth)] = torch.from_numpy(value.copy())
+        sd[state_dict_key(path, family, depth)] = param_from_jax(path, value)
     for path, value in flatten_tree(batch_stats).items():
         key = state_dict_key(path, family, depth)
         sd[key] = torch.from_numpy(np.asarray(value, dtype=np.float32).copy())
