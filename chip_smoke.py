@@ -569,12 +569,8 @@ def phase_serving(model, card):
         yolov5_decode_fn,
         yolov5_select_fn,
     )
-    from yoloseries_tpu_torch.kernels import nms_greedy as g
-    from yoloseries_tpu_torch.kernels import nms_matrix as m
     from yoloseries_tpu_torch.ops.letterbox import letterbox_image
 
-    counters = {"nms_greedy": g.nms_greedy, "matrix_nms": m.matrix_nms,
-                "matrix_nms_chunked": m.matrix_nms_chunked}
     serving = EvalConfig(conf_threshold=0.25, cls_threshold=0.25, iou_threshold=0.45,
                          num_candidates=512)
     protocol = EvalConfig(conf_threshold=0.001, cls_threshold=0.001, iou_threshold=0.65,
@@ -589,15 +585,14 @@ def phase_serving(model, card):
              ("protocol B=64", protocol, 64, "nms_greedy"),
              ("tta B=2", tta, 2, "matrix_nms_chunked")]
     rng = np.random.default_rng(0)
-    launches = {k: 0 for k in counters}
+    launches = {k: 0 for k in LAUNCH_COUNTERS}
     captured = {}
     for label, cfg, b, kernel in paths:
         ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device="cuda")
         img = rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)
         ev(img)  # warm-up (cuDNN autotune, allocator)
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        zero_counters()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(3):
@@ -605,7 +600,7 @@ def phase_serving(model, card):
             out = ev(img)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        counts = {k: c.launches for k, c in counters.items()}
+        counts = read_counters()
         if counts[kernel] == 0:
             fail(f"{label}: {kernel} was not launched ({counts})")
         for k, n in counts.items():
@@ -636,8 +631,7 @@ def phase_serving(model, card):
         fail("card detections disagree with the CPU reference")
 
     # detect_batch on letterboxed images of assorted sizes
-    for c in counters.values():
-        c.launches = 0
+    zero_counters()
     batch = np.zeros((8, 640, 640, 3), np.uint8)
     infos = np.ones((8, 5), np.float32)
     for i in range(8):
@@ -647,9 +641,10 @@ def phase_serving(model, card):
         infos[i] = info.as_array()
     dets = detect_batch(ev_gpu, batch, infos)
     torch.cuda.synchronize()
-    if len(dets) != 8 or counters["matrix_nms"].launches == 0:
+    b2_launches = read_counters()["matrix_nms"]
+    if len(dets) != 8 or b2_launches == 0:
         fail("detect_batch did not run through matrix_nms")
-    launches["matrix_nms"] += counters["matrix_nms"].launches
+    launches["matrix_nms"] += b2_launches
     log(f"detect_batch B=8: {sum(0 if d is None else len(d) for d in dets)} detections")
     return launches, captured
 
@@ -850,9 +845,7 @@ def phase_timings(captured, launches, mismatches, card):
         ("matrix_nms_chunked", "tta B=2", m.matrix_nms_chunked, m.matrix_nms_chunked_plain,
          b2[0], "yoloseries_tpu/kernels/nms_matrix.py:194"),
     ]
-    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
-                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
-    saved = {k: f.launches for k, f in counters.items()}
+    saved = read_counters()
     step = {}  # probe ("warp" or a block size) -> us per dependent step
     rows = {}
     for name, label, kernel, twin, source, replaces in specs:
@@ -916,8 +909,7 @@ def phase_timings(captured, launches, mismatches, card):
                or "not measured (the profiler lost records)"))
     rows["matrix_nms"]["relation_mismatches"] = mismatches["nms_relation"]
     rows["matrix_nms"]["crossover"] = crossover(card)
-    for k, f in counters.items():
-        f.launches = saved[k]  # the timing launches are not the path's
+    restore_counters(saved)  # the timing launches are not the path's
     rows = list(rows.values())
     if any(r["max_abs_err"] for r in rows):
         fail("kernel/twin disagreement at the serving path's candidates")
@@ -1327,12 +1319,9 @@ def phase_training(card):
     from yoloseries_tpu_torch.configs import TrainConfig
     from yoloseries_tpu_torch.data.loader import collate_batch
     from yoloseries_tpu_torch.kernels import nms_greedy as g
-    from yoloseries_tpu_torch.kernels import nms_matrix as m
     from yoloseries_tpu_torch.train import Trainer
 
     t_phase = time.perf_counter()
-    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
-                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -1360,8 +1349,7 @@ def phase_training(card):
             ends, host = timed_updates(trainer)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            for c in counters.values():
-                c.launches = 0
+            zero_counters()
             t0 = time.perf_counter()
             trainer.train()
             torch.cuda.synchronize()
@@ -1371,7 +1359,7 @@ def phase_training(card):
                 t0 = time.perf_counter()
                 result = trainer.evaluate()
                 eval_s = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items()}
+            launches = read_counters()
             per_update = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
             ms = float(np.median(per_update[1:]))  # updates 3.. (the first two: cuDNN tuning)
             # host clock: between one step's exit and the next one's entry the
@@ -1535,7 +1523,7 @@ def greedy_mismatches(calls):
     from yoloseries_tpu_torch.kernels import nms_greedy as g
 
     bad = kept = live = 0
-    saved = g.nms_greedy.launches
+    saved = read_counters()
     for boxes, scores, thr in calls:
         want = g.greedy_nms(boxes, scores, thr, MAX_KEEP)
         got = g.nms_greedy(boxes, scores, thr, MAX_KEEP)
@@ -1543,7 +1531,7 @@ def greedy_mismatches(calls):
         bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
         kept += int(want[1].sum())
         live += int((scores > 0).sum())
-    g.nms_greedy.launches = saved
+    restore_counters(saved)
     return bad, kept, live
 
 
@@ -1563,7 +1551,6 @@ def phase_recipe(card, keep_dir):
     from yoloseries_tpu_torch.cli.val import main as val_main
     from yoloseries_tpu_torch.configs import TrainConfig
     from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
-    from yoloseries_tpu_torch.kernels import nms_greedy as g
     from yoloseries_tpu_torch.kernels import nms_matrix as m
     from yoloseries_tpu_torch.train import Trainer, latest_step
 
@@ -1571,8 +1558,6 @@ def phase_recipe(card, keep_dir):
     cores, usable = os.cpu_count(), len(os.sched_getaffinity(0))
     log(f"host: os.cpu_count() {cores}, usable cores {usable}; cv2 {cv2.__version__}, "
         f"cv2 threads {cv2.getNumThreads()}")
-    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
-                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
     batch = TRAIN_BATCH * TRAIN_ACCUMULATE
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1652,15 +1637,14 @@ def phase_recipe(card, keep_dir):
             f"[{card}]")
 
         # val on the checkpoint the run wrote: B1 at B=16, K=4096
-        for c in counters.values():
-            c.launches = 0
+        zero_counters()
         with record_nms_inputs() as rec:
             t0 = time.perf_counter()
             result = val_main(["--ckpt-dir", str(ckpt_dir), "--val-img-dir", str(val_dirs[0]),
                                "--val-lab-dir", str(val_dirs[1]), "--name-path",
                                str(val_dirs[2]), "--device", "cuda"])
             val_s = time.perf_counter() - t0
-        val_launches = {k: c.launches for k, c in counters.items()}
+        val_launches = read_counters()
         val_calls = rec["nms_greedy"]
         mismatches, kept, live = greedy_mismatches(val_calls)
         log(f"cli/val.py on the step-{RECIPE_EPOCHS} checkpoint (EMA), {TRAIN_BATCH} images at "
@@ -1680,23 +1664,22 @@ def phase_recipe(card, keep_dir):
         few.mkdir()
         for p in sorted(val_dirs[0].iterdir())[:6]:
             (few / p.name).symlink_to(p)
-        for c in counters.values():
-            c.launches = 0
+        zero_counters()
         with record_nms_inputs() as rec:
             t0 = time.perf_counter()
             found = detect_main(["--ckpt-dir", str(ckpt_dir), "--img-dir", str(few),
                                  "--name-path", str(val_dirs[2]), "--save-dir",
                                  str(tmp / "detect"), "--device", "cuda"])
             detect_s = time.perf_counter() - t0
-        detect_launches = {k: c.launches for k, c in counters.items()}
+        detect_launches = read_counters()
         bad = greedy_mismatches(rec["nms_greedy"])[0]
-        saved = m.matrix_nms.launches
+        saved = read_counters()
         for boxes, scores, thr in rec["matrix_nms"]:
             want = m.matrix_nms_plain(boxes, scores, thr, MAX_KEEP)
             got = m.matrix_nms(boxes, scores, thr, MAX_KEEP)
             torch.cuda.synchronize()
             bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
-        m.matrix_nms.launches = saved
+        restore_counters(saved)
         n_boxes = sum(len(v) for v in found.values())
         log(f"cli/detect.py --ckpt-dir on {len(found)} images (B=8, K=4096, conf .3): {n_boxes} "
             f"boxes in {detect_s:.1f} s; launches {detect_launches}; against the twins at its "
@@ -1824,13 +1807,9 @@ def phase_device_aug(card, recipe):
     from yoloseries_tpu_torch.configs import TrainConfig
     from yoloseries_tpu_torch.data import DataLoader, DetectionDataset, collate_batch
     from yoloseries_tpu_torch.data.device_aug import render_batch, render_method, repack_tiles
-    from yoloseries_tpu_torch.kernels import nms_greedy as g
-    from yoloseries_tpu_torch.kernels import nms_matrix as m
     from yoloseries_tpu_torch.train import Trainer
 
     t_phase = time.perf_counter()
-    counters = {"nms_greedy": g.nms_greedy, "nms_relation": m.nms_relation,
-                "matrix_nms": m.matrix_nms, "matrix_nms_chunked": m.matrix_nms_chunked}
     batch = TRAIN_BATCH * TRAIN_ACCUMULATE
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1906,8 +1885,7 @@ def phase_device_aug(card, recipe):
             widen_head(model.eval(), calib)
             trainer.state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
             ends, host_t = timed_updates(trainer)
-            for c in counters.values():
-                c.launches = 0
+            zero_counters()
             t0 = time.perf_counter()
             trainer.train()
             torch.cuda.synchronize()
@@ -1916,7 +1894,7 @@ def phase_device_aug(card, recipe):
                 t0 = time.perf_counter()
                 result = trainer.evaluate()
                 eval_s = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items()}
+            launches = read_counters()
             bad_losses = [h for h in trainer.history
                           if not all(np.isfinite(v) for v in h.values())]
             if len(trainer.history) != AUG_UPDATES or bad_losses:
@@ -2061,7 +2039,13 @@ def knob_images(seed, b):
     return np.random.default_rng(seed).integers(0, 256, (b, KNOB_HW, KNOB_HW, 3), dtype=np.uint8)
 
 
-def counters():
+# each NMS wrapper's launch counter in the port's registry (utils/trace.py)
+LAUNCH_COUNTERS = {"nms_greedy": "nms_greedy.launches", "nms_relation": "nms_relation.launches",
+                   "matrix_nms": "nms_matrix.launches",
+                   "matrix_nms_chunked": "nms_matrix_chunked.launches"}
+
+
+def kernels():
     from yoloseries_tpu_torch.kernels import nms_greedy as g
     from yoloseries_tpu_torch.kernels import nms_matrix as m
 
@@ -2070,12 +2054,26 @@ def counters():
 
 
 def zero_counters():
-    for c in counters().values():
-        c.launches = 0
+    from yoloseries_tpu_torch.utils import trace
+
+    trace.reset()
 
 
 def read_counters():
-    return {k: c.launches for k, c in counters().items()}
+    """The launches of each NMS wrapper since the last ``zero_counters``."""
+    from yoloseries_tpu_torch.utils import trace
+
+    counts = trace.totals()["counters"]
+    return {k: counts.get(name, 0) for k, name in LAUNCH_COUNTERS.items()}
+
+
+def restore_counters(saved):
+    """Take the launches made since ``saved`` (``read_counters``) off the
+    counters again."""
+    from yoloseries_tpu_torch.utils import trace
+
+    for k, n in read_counters().items():
+        trace.count(LAUNCH_COUNTERS[k], saved[k] - n)
 
 
 def twin_mismatches(rec):
@@ -2091,13 +2089,12 @@ def twin_mismatches(rec):
     bad = calls = 0
     for name, recorded in rec.items():
         for boxes, scores, thr in recorded:
-            got = counters()[name](boxes, scores, thr, MAX_KEEP)
+            got = kernels()[name](boxes, scores, thr, MAX_KEEP)
             want = twins[name](boxes, scores, thr, MAX_KEEP)
             torch.cuda.synchronize()
             bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
             calls += 1
-    for k, c in counters().items():
-        c.launches = saved[k]
+    restore_counters(saved)
     return bad, calls
 
 
@@ -2423,7 +2420,7 @@ def knob_wbf(model, card):
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        branches = torch.stack([ev._nms(b_) for b_ in
+        branches = torch.stack([ev._nms([b_]) for b_ in
                                 ev._branch_outputs(ev._prepare(img), tta=True)]).cpu().numpy()
         t1 = time.perf_counter()
         for i in range(branches.shape[1]):
@@ -2781,6 +2778,7 @@ AF_GROUPS = (  # (part, record_function ranges), the profiler's device time with
     ("loss forward (assigner included)", ("train.loss",)),
     ("  of it the assigner", ("yolox_loss.assign", "yolov8_loss.assign", "yolov7_loss.assign",
                               "retinanet_loss.assign", "fcos_loss.assign")),
+    ("  of it YOLOv7's winner step", ("yolov7_loss.winners",)),
     ("optimizer", ("train.optimizer",)),
     ("EMA", ("train.ema",)),
 )  # the backward runs on autograd's thread, outside the ranges: the rest of the busy time
@@ -2887,8 +2885,7 @@ def kernel_at(name, captured, where, launches, card):
     ms = cuda_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP), iters=20)
     device_ms = spun_ms(lambda: kernel(boxes, scores, thr, MAX_KEEP))
     plain = cuda_ms(lambda: twin(boxes, scores, thr, MAX_KEEP), iters=3, warmup=1)
-    for k, c in counters().items():
-        c.launches = saved[k]
+    restore_counters(saved)
     b, k = scores.shape
     keepers = kv.sum(dim=1)
     strips = None
@@ -2921,8 +2918,9 @@ def v8_branch_grid_check(ev, img):
 
     worst = np.inf
     with torch.inference_mode():
-        for x, s, _ in ev._branches(ev._prepare(img), True):
-            maps = ev.model(x)
+        img_t = ev._prepare(img)
+        for s, f in ev._branch_specs(True):
+            maps = ev.model(ev._branch_image(img_t, s, f, True))
             rows = decode_yolov8(maps, 80)
             cx, cy = [], []
             for mp, stride in zip(maps, (4, 8, 16, 32)):

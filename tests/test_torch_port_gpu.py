@@ -18,8 +18,14 @@ import pytest
 import torch
 
 from yoloseries_tpu_torch.kernels import nms_greedy, nms_matrix
+from yoloseries_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
+
+
+def launches(counter):
+    """The launches counted under ``counter`` since the last reset."""
+    return trace.totals()["counters"].get(counter, 0)
 
 
 @pytest.fixture
@@ -69,9 +75,9 @@ def _check(kernel, twin, dev, b, k, thr, max_keep=300, shuffle=True, **kw):
     (2, 8192, 0.65, False), (2, 8192, 0.65, True),  # the largest K: 225 KB of shared memory
 ])
 def test_greedy_kernel_matches_twin(cuda, b, k, thr, shuffle):
-    n = nms_greedy.nms_greedy.launches
+    trace.reset()
     _check(nms_greedy.nms_greedy, nms_greedy.greedy_nms, cuda, b, k, thr, shuffle=shuffle)
-    assert nms_greedy.nms_greedy.launches == n + 1
+    assert launches("nms_greedy.launches") == 1
 
 
 def test_greedy_kernel_cuts_inside_a_tile_and_skips_dead_images(cuda):
@@ -95,21 +101,21 @@ def test_greedy_kernel_cuts_inside_a_tile_and_skips_dead_images(cuda):
     (8, 512, False), (3, 333, False),  # sorted by priority: the popcount ranks
 ])
 def test_matrix_kernel_matches_twin(cuda, b, k, shuffle):
-    n = nms_matrix.matrix_nms.launches
+    trace.reset()
     _check(nms_matrix.matrix_nms, nms_matrix.matrix_nms_plain, cuda, b, k, 0.45,
            shuffle=shuffle)
-    assert nms_matrix.matrix_nms.launches == n + 1
+    assert launches("nms_matrix.launches") == 1
 
 
 @pytest.mark.parametrize("b,k", [(8, 512), (2, 1024), (3, 200)])
 def test_relation_kernel_matches_twin_bit_for_bit(cuda, b, k):
-    n = nms_matrix.nms_relation.launches
+    trace.reset()
     boxes, scores = candidates(b * 17 + k, b, k)
     want = nms_matrix.nms_relation_plain(boxes.to(cuda), scores.to(cuda), 0.45)
     got = nms_matrix.nms_relation(boxes.to(cuda), scores.to(cuda), 0.45)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want.cpu())
-    assert nms_matrix.nms_relation.launches == n + 1
+    assert launches("nms_relation.launches") == 1
 
 
 def test_chunked_driver_matches_greedy_twin(cuda):
@@ -128,10 +134,10 @@ def test_chunked_driver_matches_greedy_twin(cuda):
     (2, 1500, 150, 128),  # narrow strips: the carry fills in the middle of one
 ])
 def test_chunked_kernel_matches_chunked_twin(cuda, b, k, max_keep, chunk):
-    n = nms_matrix.matrix_nms_chunked.launches
+    trace.reset()
     _check(nms_matrix.matrix_nms_chunked, nms_matrix.matrix_nms_chunked_plain, cuda, b, k,
            0.65, max_keep, chunk=chunk)
-    assert nms_matrix.matrix_nms_chunked.launches == n + 1
+    assert launches("nms_matrix_chunked.launches") == 1
 
 
 def test_cuda_evaluator_matches_cpu(cuda):
@@ -231,9 +237,9 @@ def test_trainer_evaluate_launches_nms_greedy(cuda, tmp_path):
     try:
         trainer.train()
         assert np.isfinite(trainer.history[0]["tot_loss"])
-        n = nms_greedy.nms_greedy.launches
+        trace.reset()
         out = trainer.evaluate()
-        assert nms_greedy.nms_greedy.launches == n + 2  # one per val batch of 2
+        assert launches("nms_greedy.launches") == 2  # one per val batch of 2
         assert 0.0 <= out["map"] <= 1.0
     finally:
         trainer.close()

@@ -17,6 +17,15 @@
 
 Batches stay numpy: the caller copies them to the card (the ``Trainer``
 through pinned memory); /255 happens there.
+
+Counted (``utils/trace.py``): each worker times the making of its sample,
+and the producer thread adds the samples and their ns under
+``loader.samples.<path>`` and ``loader.sample_ns.<path>`` (``letterbox``,
+``augment`` or ``plan``), and its own ns outside the workers' map (the
+collate) under ``loader.batches`` and ``loader.batch_ns``; a loader adds
+its workers to ``loader.workers``. The consumer's wait for a batch is the
+span ``loader.wait``. The producer opens no span: a profiler range there
+would label the main thread's idle gaps.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import numpy as np
 from ..ops.letterbox import letterbox_boxes, letterbox_image
 from ..ops.preprocess import letterbox_plan
 from ..parallel.dist import part_rows
+from ..utils import trace
 from .augment import import_cv2
 from .device_aug import N_TILES, device_aug_supported, plan_sample
 
@@ -64,6 +74,8 @@ def _arena_view(arena, slot: int, slot_bytes: int, shape) -> np.ndarray:
 
 
 def _worker_load(args):
+    """One letterboxed sample and the ns it took."""
+    t0 = time.perf_counter_ns()
     idx, sample_id, seed, enable_aug, dst_hw, fill_value, slot = args
     rng = np.random.default_rng((seed, sample_id))
     img, boxes, classes = _WORKER["dataset"].get(idx, rng, enable_aug=enable_aug)
@@ -71,19 +83,21 @@ def _worker_load(args):
     if out.nbytes <= _WORKER["slot_bytes"]:  # a larger multi-scale size goes by the pipe
         _arena_view(_WORKER["arena"], slot, _WORKER["slot_bytes"], out.shape)[...] = out
         out = out.shape
-    return out, info, boxes, classes
+    return (out, info, boxes, classes), time.perf_counter_ns() - t0
 
 
 def _worker_plan(args):
-    """One sample's augmentation plan; a pixel plan's tiles go into the
-    arena's slot (every slot holds 8 tiles when pixel plans are made)."""
+    """One sample's augmentation plan and the ns it took; a pixel plan's
+    tiles go into the arena's slot (every slot holds 8 tiles when pixel
+    plans are made)."""
+    t0 = time.perf_counter_ns()
     idx, sample_id, seed, with_pixels, slot = args
     plan, boxes, classes, plane_hw = plan_sample(
         _WORKER["dataset"], idx, np.random.default_rng((seed, sample_id)), with_pixels)
     if with_pixels:
         tiles = plan.pop("tiles")
         _arena_view(_WORKER["arena"], slot, _WORKER["slot_bytes"], tiles.shape)[...] = tiles
-    return plan, boxes, classes, plane_hw
+    return (plan, boxes, classes, plane_hw), time.perf_counter_ns() - t0
 
 
 def join_pool(pool: ThreadPoolExecutor) -> None:
@@ -248,6 +262,7 @@ class DataLoader:
                 workers, initializer=_worker_init,
                 initargs=(dataset, self._arena, self._slot_bytes))
         self._pool = ThreadPoolExecutor(max_workers=max(workers, 1))
+        trace.count("loader.workers", max(workers, 1))
         self._queue: Queue = Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._sample_counter = 0
@@ -295,40 +310,59 @@ class DataLoader:
         return self._enable_aug or (self._aug_until is not None and n < self._aug_until)
 
     def _load_one(self, idx: int, sample_id: int, aug: bool):
+        t0 = time.perf_counter_ns()
         rng = np.random.default_rng((self.seed, sample_id))
-        return self.dataset.get(idx, rng, enable_aug=aug)
+        return self.dataset.get(idx, rng, enable_aug=aug), time.perf_counter_ns() - t0
 
     def _plan_one(self, idx: int, sample_id: int):
+        t0 = time.perf_counter_ns()
         rng = np.random.default_rng((self.seed, sample_id))
-        return plan_sample(self.dataset, idx, rng, with_pixels=not self.device_cache)
+        plan = plan_sample(self.dataset, idx, rng, with_pixels=not self.device_cache)
+        return plan, time.perf_counter_ns() - t0
+
+    def _map_samples(self, chunk, ids, aug: bool, size: tuple, plans: bool):
+        """The batch's samples, each made by a worker: [(sample, its ns)]."""
+        slots = enumerate(zip(chunk, ids))
+        if plans:
+            if self._proc_pool is None:
+                return list(self._pool.map(self._plan_one, chunk, ids))
+            with_pixels = not self.device_cache
+            return self._proc_pool.map(
+                _worker_plan, [(i, sid, self.seed, with_pixels, slot) for slot, (i, sid) in slots])
+        if self._proc_pool is None:
+            return list(self._pool.map(self._load_one, chunk, ids, [aug] * len(chunk)))
+        fill = self.dataset.aug.fill_value
+        return self._proc_pool.map(
+            _worker_load, [(i, sid, self.seed, aug, size, fill, slot) for slot, (i, sid) in slots])
 
     def _make_batch(self, chunk, ids, aug: bool, size: tuple):
         """One batch at letterbox ``size`` from the samples ``chunk`` with
-        sample ids ``ids``, augmented when ``aug``."""
-        fill = self.dataset.aug.fill_value
-        if self.device_aug and aug:
-            with_pixels = not self.device_cache
-            if self._proc_pool is None:
-                samples = list(self._pool.map(self._plan_one, chunk, ids))
-            else:
-                samples = self._proc_pool.map(
-                    _worker_plan, [(i, sid, self.seed, with_pixels, slot)
-                                   for slot, (i, sid) in enumerate(zip(chunk, ids))])
-                if with_pixels:
-                    hw = self.dataset.input_size
-                    for slot, (plan, *_) in enumerate(samples):
-                        plan["tiles"] = _arena_view(self._arena, slot, self._slot_bytes,
-                                                    (N_TILES, *hw, 3))
-            return collate_plan_batch(samples, size, self.max_labels)
-        if self._proc_pool is None:
-            samples = list(self._pool.map(self._load_one, chunk, ids, [aug] * len(chunk)))
-            return collate_batch(samples, size, self.max_labels, fill_value=fill)
-        done = self._proc_pool.map(
-            _worker_load, [(i, sid, self.seed, aug, size, fill, slot)
-                           for slot, (i, sid) in enumerate(zip(chunk, ids))])
-        return _assemble([(_arena_view(self._arena, slot, self._slot_bytes, out)
-                           if isinstance(out, tuple) else out, *rest)
-                          for slot, (out, *rest) in enumerate(done)], self.max_labels)
+        sample ids ``ids``, augmented when ``aug``; counted (see the
+        module)."""
+        plans = self.device_aug and aug
+        timed = self._map_samples(chunk, ids, aug, size, plans)
+        t0 = time.perf_counter_ns()
+        samples = [sample for sample, _ in timed]
+        if plans:
+            if self._proc_pool is not None and not self.device_cache:
+                hw = self.dataset.input_size
+                for slot, (plan, *_) in enumerate(samples):
+                    plan["tiles"] = _arena_view(self._arena, slot, self._slot_bytes,
+                                                (N_TILES, *hw, 3))
+            batch = collate_plan_batch(samples, size, self.max_labels)
+        elif self._proc_pool is None:
+            batch = collate_batch(samples, size, self.max_labels,
+                                  fill_value=self.dataset.aug.fill_value)
+        else:
+            batch = _assemble([(_arena_view(self._arena, slot, self._slot_bytes, out)
+                                if isinstance(out, tuple) else out, *rest)
+                               for slot, (out, *rest) in enumerate(samples)], self.max_labels)
+        path = "plan" if plans else "augment" if aug else "letterbox"
+        trace.count(f"loader.samples.{path}", len(timed))
+        trace.count(f"loader.sample_ns.{path}", sum(ns for _, ns in timed))
+        trace.count("loader.batches")
+        trace.count("loader.batch_ns", time.perf_counter_ns() - t0)
+        return batch
 
     def _produce(self):
         indices = infinite_indices(len(self.dataset), self.seed, self.shuffle)
@@ -368,7 +402,8 @@ class DataLoader:
         return self
 
     def __next__(self):
-        batch = self._queue.get()
+        with trace.span("loader.wait"):
+            batch = self._queue.get()
         if batch is None:
             raise StopIteration
         if isinstance(batch, Exception):

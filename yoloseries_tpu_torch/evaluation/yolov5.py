@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.anchors import YOLOV5_ANCHORS, make_grid
 from ..ops.nms import candidate_gate, nms_candidates, postprocess_detections
+from ..utils.trace import span, warmup
 
 __all__ = [
     "decode_yolov5",
@@ -242,6 +243,13 @@ class Evaluator:
     ``select_fn(maps) -> (boxes_xyxy, scores, cls_ids)`` (used when given).
     The NMS runs in the CUDA kernels on the card. Runs on ``device``
     (default ``cuda``; raises without a card unless ``device="cpu"``).
+
+    Each call's phases run in sibling spans (``utils/trace.py``):
+    ``eval.prepare`` (the copy to the device, /255, NHWC to NCHW),
+    ``eval.forward`` (a branch's flip and resize, and the model),
+    ``eval.select`` (decode or fused selection, the boxes mapped back) and
+    ``eval.nms`` (the branches merged, NMS, the family's quirks). The first
+    call at each input shape and dtype runs inside ``warmup.eval``.
     """
 
     def __init__(self, model: torch.nn.Module, decode_fn: Callable, cfg: EvalConfig,
@@ -251,17 +259,21 @@ class Evaluator:
         self.decode_fn = decode_fn
         self.cfg = cfg
         self.select_fn = select_fn
+        self._shapes = set()  # (shape, dtype) of the inputs called so far
 
-    def _branches(self, img, tta: bool):
-        """(image, scale, flip) per TTA branch; img is (B, 3, H, W)."""
+    def _branch_specs(self, tta: bool):
+        """(scale, flip) per TTA branch; one plain branch without TTA."""
+        return list(zip(self.cfg.tta_scales, self.cfg.tta_flips)) if tta else [(1.0, None)]
+
+    @staticmethod
+    def _branch_image(img, s, f, tta: bool):
+        """A branch's input from img (B, 3, H, W): img itself without TTA,
+        else flipped along ``f`` and scaled by ``s``."""
         if not tta:
-            return [(img, 1.0, None)]
-        out = []
-        for s, f in zip(self.cfg.tta_scales, self.cfg.tta_flips):
-            # JAX NHWC axis 1 (H) / 2 (W) -> NCHW dim 2 / 3
-            x = torch.flip(img, dims=(f + 1,)) if f is not None else img
-            out.append((scale_and_pad(x, s), s, f))
-        return out
+            return img
+        # JAX NHWC axis 1 (H) / 2 (W) -> NCHW dim 2 / 3
+        x = torch.flip(img, dims=(f + 1,)) if f is not None else img
+        return scale_and_pad(x, s)
 
     @staticmethod
     def _adjust_boxes(boxes, s, f, img_h, img_w):
@@ -290,27 +302,35 @@ class Evaluator:
         ``select_fn``, else the dense decoded rows, mapped back to ``img``."""
         img_h, img_w = img.shape[2], img.shape[3]
         outs = []
-        for x, s, f in self._branches(img, tta):
-            maps = self.model(x)
-            if self.select_fn is not None:
-                boxes, scores, cls_ids = self.select_fn(maps)
-                outs.append((self._adjust_boxes(boxes, s, f, img_h, img_w), scores, cls_ids))
-            else:
-                p = self.decode_fn(maps)
-                outs.append(self._adjust_preds(p, s, f, img_h, img_w) if tta else p)
+        for s, f in self._branch_specs(tta):
+            with span("eval.forward"):
+                maps = self.model(self._branch_image(img, s, f, tta))
+            with span("eval.select"):
+                if self.select_fn is not None:
+                    boxes, scores, cls_ids = self.select_fn(maps)
+                    outs.append((self._adjust_boxes(boxes, s, f, img_h, img_w), scores,
+                                 cls_ids))
+                else:
+                    p = self.decode_fn(maps)
+                    outs.append(self._adjust_preds(p, s, f, img_h, img_w) if tta else p)
         return outs
 
-    def _nms(self, branch):
+    def _nms(self, branches):
+        """(B, max_keep, 6) detections of the candidates of ``branches``
+        merged along the candidate axis."""
         cfg = self.cfg
         kw = dict(iou_threshold=cfg.iou_threshold, max_keep=cfg.max_keep,
                   class_aware=cfg.class_aware, merge_boxes=cfg.merge_boxes,
                   nms_mode=cfg.nms_mode, merge_write_boxes=cfg.merge_write_boxes,
                   merge_gate_max=cfg.merge_gate_max)
-        if self.select_fn is not None:
-            return self._finalize(nms_candidates(*branch, **kw))
-        return self._finalize(postprocess_detections(
-            branch, conf_threshold=cfg.conf_threshold, cls_threshold=cfg.cls_threshold,
-            num_candidates=cfg.num_candidates, conf_gate=cfg.conf_gate, **kw))
+        with span("eval.nms"):
+            if self.select_fn is not None:
+                merged = tuple(torch.cat(parts, dim=1) for parts in zip(*branches))
+                return self._finalize(nms_candidates(*merged, **kw))
+            return self._finalize(postprocess_detections(
+                torch.cat(branches, dim=1), conf_threshold=cfg.conf_threshold,
+                cls_threshold=cfg.cls_threshold, num_candidates=cfg.num_candidates,
+                conf_gate=cfg.conf_gate, **kw))
 
     def _finalize(self, out):
         """The family's post-NMS quirks on (B, max_keep, 6) rows: conf 0
@@ -330,9 +350,10 @@ class Evaluator:
     def _prepare(self, img) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float, numpy or tensor -> (B, 3, H, W) f32
         in [0, 1] on the evaluator's device."""
-        img = torch.as_tensor(img).to(self.device)
-        img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
-        return img.permute(0, 3, 1, 2).contiguous()
+        with span("eval.prepare"):
+            img = torch.as_tensor(img).to(self.device)
+            img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
+            return img.permute(0, 3, 1, 2).contiguous()
 
     @torch.inference_mode()
     def __call__(self, img) -> torch.Tensor:
@@ -341,7 +362,9 @@ class Evaluator:
         letterboxed input pixels on the evaluator's device; unused slots
         have conf 0. With ``cfg.use_wbf`` the rows are :meth:`detect_wbf`'s
         fused detections, the first ``max_keep`` by descending conf."""
-        if self.cfg.use_wbf:
+        with warmup("warmup.eval", self._shapes, (np.shape(img), getattr(img, "dtype", None))):
+            if not self.cfg.use_wbf:
+                return self._nms(self._branch_outputs(self._prepare(img), self.cfg.use_tta))
             fused = self.detect_wbf(img)
             rows = np.zeros((len(fused), self.cfg.max_keep, 6), np.float32)
             for i, dets in enumerate(fused):
@@ -349,12 +372,6 @@ class Evaluator:
                     dets = dets[:self.cfg.max_keep]
                     rows[i, :len(dets)] = dets
             return torch.from_numpy(rows).to(self.device)
-        branches = self._branch_outputs(self._prepare(img), self.cfg.use_tta)
-        if self.select_fn is not None:
-            merged = tuple(torch.cat(parts, dim=1) for parts in zip(*branches))
-        else:
-            merged = torch.cat(branches, dim=1)
-        return self._nms(merged)
 
     @torch.inference_mode()
     def detect_wbf(self, img) -> list:
@@ -364,7 +381,7 @@ class Evaluator:
         in letterboxed input pixels, None where nothing survives."""
         from ..ops.wbf import weighted_boxes_fusion
 
-        branches = torch.stack([self._nms(b) for b in
+        branches = torch.stack([self._nms([b]) for b in
                                 self._branch_outputs(self._prepare(img), tta=True)])
         branches = branches.cpu().numpy()  # (n_branches, B, max_keep, 6)
         n_br = branches.shape[0]

@@ -9,6 +9,9 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 No PyTorch headers are compiled: each C entry takes raw device pointers, the
 sizes and the CUDA stream, launches on that stream, and returns
 ``cudaGetLastError()``; the wrappers raise when it is not 0.
+
+The build or load runs in the span ``setup.kernels``; the counter
+``kernels.built`` counts the builds that ran ``nvcc`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils import trace
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_log", "check", "launch",
            "load"]
@@ -99,6 +104,7 @@ def build() -> tuple[Path, str]:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp_lib, lib_path)  # atomic: a reader never sees a partial file
+    trace.count("kernels.built")
     return lib_path, "".join(logs)
 
 
@@ -107,7 +113,7 @@ def load():
     global _lib, _log
     if _lib is not None:  # set once, after every entry is typed: no lock needed
         return _lib
-    with _lock:
+    with _lock, trace.span("setup.kernels"):
         if _lib is None:
             path, _log = build()
             lib = ctypes.CDLL(str(path))

@@ -13,7 +13,8 @@ is the kernel's design step for step (priority order, 32-wide tiles in
 order, each member tested against the keepers so far, then resolved inside
 its tile), for the tests: the two give the same result. ``nms_greedy``
 runs ``greedy_nms`` for a tensor on the CPU and the kernel for a tensor on
-a CUDA device; ``nms_greedy.launches`` counts kernel launches.
+a CUDA device; the counter ``nms_greedy.launches`` (``utils/trace.py``)
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.iou import pairwise_iou
+from ..utils import trace
 from . import _build
 
 __all__ = ["GREEDY_MAX_K", "greedy_nms", "greedy_nms_tiled_plain", "nms_greedy",
@@ -132,11 +134,11 @@ def check_cuda_inputs(entry: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{entry}: tensors must be contiguous")
 
 
-def launch_nms(entry: str, wrapper, boxes: torch.Tensor, scores: torch.Tensor,
+def launch_nms(entry: str, counter: str, boxes: torch.Tensor, scores: torch.Tensor,
                iou_threshold: float, max_keep: int, scratch: torch.Tensor | None = None):
     """Allocate the outputs, launch C entry ``entry`` on the current stream
     (with the device ``scratch`` after the outputs, where it takes one) and
-    count the launch on ``wrapper.launches`` (inputs already checked)."""
+    count the launch under ``counter`` (inputs already checked)."""
     check_cuda_inputs(entry, boxes, scores)
     b, k = scores.shape
     keep_idx = torch.empty((b, max_keep), dtype=torch.int32, device=boxes.device)
@@ -147,7 +149,7 @@ def launch_nms(entry: str, wrapper, boxes: torch.Tensor, scores: torch.Tensor,
     _build.launch(entry, boxes.device, boxes.data_ptr(), scores.data_ptr(), b, k,
                   float(iou_threshold), max_keep, keep_idx.data_ptr(),
                   keep_valid.data_ptr(), *extra)
-    wrapper.launches += 1
+    trace.count(counter)
     return keep_idx, keep_valid
 
 
@@ -159,8 +161,6 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     check_nms_inputs(boxes, scores, GREEDY_MAX_K, "nms_greedy")
     if boxes.device.type == "cpu":
         return greedy_nms(boxes, scores, iou_threshold, max_keep)
-    return launch_nms("yst_nms_greedy", nms_greedy, boxes, scores,
+    return launch_nms("yst_nms_greedy", "nms_greedy.launches", boxes, scores,
                       iou_threshold, max_keep)
 
-
-nms_greedy.launches = 0

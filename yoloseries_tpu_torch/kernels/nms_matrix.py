@@ -8,7 +8,9 @@ priority order); the input need not be sorted. B2 takes K <= 1024, B3 any
 K.
 
 Each wrapper runs its twin for a tensor on the CPU and its kernels for a
-tensor on a CUDA device, and counts its C calls in ``.launches``:
+tensor on a CUDA device, and counts its C calls under a counter of
+``utils/trace.py`` (``nms_relation.launches``, ``nms_matrix.launches``,
+``nms_matrix_chunked.launches``):
 
 * ``nms_relation`` (twin ``nms_relation_plain``): the (B, W, K) suppression
   words, W = ceil(K / 32); bit l of word w of victim i says that
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.iou import pairwise_iou
+from ..utils import trace
 from . import _build
 from .nms_greedy import check_cuda_inputs, check_nms_inputs, launch_nms, priority_order
 
@@ -104,11 +107,9 @@ def nms_relation(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
     if b:
         _build.launch("yst_nms_relation", boxes.device, boxes.data_ptr(), scores.data_ptr(),
                       b, k, float(iou_threshold), words.data_ptr())
-        nms_relation.launches += 1
+        trace.count("nms_relation.launches")
     return words
 
-
-nms_relation.launches = 0
 
 
 def matrix_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -120,11 +121,9 @@ def matrix_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         return matrix_nms_plain(boxes, scores, iou_threshold, max_keep)
     b, k = scores.shape
     words = torch.empty((b, -(-k // 32), k), dtype=torch.int32, device=boxes.device)
-    return launch_nms("yst_nms_matrix", matrix_nms, boxes, scores, iou_threshold, max_keep,
-                      scratch=words)
+    return launch_nms("yst_nms_matrix", "nms_matrix.launches", boxes, scores, iou_threshold,
+                      max_keep, scratch=words)
 
-
-matrix_nms.launches = 0
 
 
 def _sorted_candidates(boxes: torch.Tensor, scores: torch.Tensor, chunk: int):
@@ -219,8 +218,6 @@ def matrix_nms_chunked(boxes: torch.Tensor, scores: torch.Tensor,
     _build.launch("yst_nms_matrix_chunked", dev, sb.data_ptr(), ss.data_ptr(), b,
                   ss.shape[1], chunk, float(iou_threshold), max_keep, keep_idx.data_ptr(),
                   keep_valid.data_ptr(), work.data_ptr())
-    matrix_nms_chunked.launches += 1
+    trace.count("nms_matrix_chunked.launches")
     return _original_indices(order, keep_idx, keep_valid)
 
-
-matrix_nms_chunked.launches = 0

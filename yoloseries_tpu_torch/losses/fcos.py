@@ -31,8 +31,8 @@ import math
 from typing import Sequence
 
 import torch
-from torch.profiler import record_function
 
+from ..utils.trace import span
 from .common import bce_with_logits, focal_loss_factor
 
 __all__ = ["FCOSLossConfig", "fcos_assign", "fcos_loss", "regression_ranges"]
@@ -180,7 +180,7 @@ def fcos_loss(cls_fms: Sequence[torch.Tensor], reg_fms: Sequence[torch.Tensor],
         cls_l = cls_fms[li].float().permute(0, 2, 3, 1).reshape(b, p, nc)
         reg_l = reg_fms[li].float().permute(0, 2, 3, 1).reshape(b, p, 4)
         ctr_l = ctr_fms[li].float().reshape(b, p)
-        with record_function("fcos_loss.assign"), torch.no_grad():
+        with span("fcos_loss.assign"), torch.no_grad():
             pos, matched, reg_tar, ctr_tar = fcos_assign(level_grid(h, w, stride, dev), tar_xyxy,
                                                          tar_valid, stride, *ranges[li], cfg)
         posf = pos.float()

@@ -26,9 +26,9 @@ import dataclasses
 import math
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.boxes import xyxy2xywh
+from ..utils.trace import span
 from .common import bce_with_logits
 
 __all__ = ["RetinaNetLossConfig", "anchor_gt_iou", "retinanet_assign", "retinanet_loss"]
@@ -142,7 +142,7 @@ def retinanet_loss(regression, classification, targets, anchors, cfg: RetinaNetL
     gt_boxes = targets[..., 0:4].float()
     gt_cls = targets[..., 4].to(torch.int64).clamp(0, nc - 1)
 
-    with record_function("retinanet_loss.assign"), torch.no_grad():
+    with span("retinanet_loss.assign"), torch.no_grad():
         iou_max, iou_arg = retinanet_assign(anchors, gt_boxes, gt_valid, cfg.image_chunk)
     has_gt = gt_valid.any(-1)[:, None]
     positive = (iou_max >= cfg.pos_iou_thr) & has_gt

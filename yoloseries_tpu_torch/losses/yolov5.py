@@ -27,10 +27,10 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops.boxes import xywh2xyxy, xyxy2xywhn
 from ..ops.iou import ciou
+from ..utils.trace import span
 from .common import bce_with_logits, focal_loss_factor
 
 __all__ = ["YOLOv5LossConfig", "yolov5_loss", "initial_balances", "objectness_winners"]
@@ -197,7 +197,7 @@ def yolov5_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
         flat_cell = (gy * fm_w + gx) * na  # (B, M, 5)
         cells = (flat_cell[:, :, None, :]
                  + torch.arange(na, device=dev)[None, None, :, None]).reshape(batch_size, -1)
-        with record_function("yolov5_loss.winners"):
+        with span("yolov5_loss.winners"):
             winner = objectness_winners(cells, maskf.reshape(batch_size, -1) > 0, order_key,
                                         fm_h * fm_w * na)
         l_cand = cur[..., 4].reshape(batch_size, -1)

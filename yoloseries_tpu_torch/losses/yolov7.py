@@ -33,10 +33,10 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops.boxes import xywh2xyxy, xyxy2xywhn
 from ..ops.iou import ciou, pairwise_iou
+from ..utils.trace import span
 from .common import bce_with_logits, focal_loss_factor, softplus
 from .yolov5 import _assign_stage_thr, _order_key, objectness_winners
 from .yolox import _rank_below
@@ -184,7 +184,7 @@ def yolov7_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor, anch
         anc = anchors_stage[None, None, :, None, :]
         cur_flat = cur.reshape(batch_size, c_n, no)
 
-        with record_function("yolov7_loss.assign"), torch.no_grad():
+        with span("yolov7_loss.assign"), torch.no_grad():
             pxy = (torch.sigmoid(cur[..., 0:2]) * 2.0 - 0.5 + cell) * stride
             pwh = (torch.sigmoid(cur[..., 2:4]) * 2.0) ** 2 * anc * stride
             cand_box = xywh2xyxy(torch.cat([pxy, pwh], dim=-1)).reshape(batch_size, c_n, 4)
@@ -225,7 +225,7 @@ def yolov7_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor, anch
         full_sum = obj_term(pred[:, :, 4].float(), 0.0).sum()
         cells = ((gy * fm_w + gx) * na)[:, :, None, :] + torch.arange(
             na, device=dev)[None, None, :, None]
-        with record_function("yolov7_loss.winners"):
+        with span("yolov7_loss.winners"):
             winner = objectness_winners(cells.reshape(batch_size, c_n), keep, order_key,
                                         fm_h * fm_w * na)
         l_cand = cur_flat[..., 4]

@@ -30,9 +30,9 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops.boxes import tblr2xyxy, xyxy2tblr
+from ..utils.trace import span
 from .common import bce_with_logits, focal_loss_factor
 
 __all__ = ["YOLOv8LossConfig", "dfl_decode", "flat_maps", "tal_assign", "v8_grid",
@@ -180,7 +180,7 @@ def yolov8_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
     tar_valid = targets[..., 4] >= 0
     tar_cls = targets[..., 4].to(torch.int64).clamp(0, nc - 1)
 
-    with record_function("yolov8_loss.assign"), torch.no_grad():
+    with span("yolov8_loss.assign"), torch.no_grad():
         fg, matched_gt, norm_metric = tal_assign(pred_xyxy_px, torch.sigmoid(pred_cls),
                                                  tar_xyxy, tar_cls, tar_valid, grid_px, cfg)
     fgf = fg.float()

@@ -43,9 +43,9 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops.boxes import xywh2xyxy
+from ..utils.trace import span
 from .common import bce_with_logits, focal_loss_factor
 
 __all__ = ["YOLOXLossConfig", "simota_assign", "yolox_initial_balances", "yolox_loss"]
@@ -267,7 +267,7 @@ def yolox_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
         dec_wh = torch.exp(pred[..., 2:4].clamp(-20.0, 20.0)) * stride
         decoded = torch.cat([dec_xy, dec_wh, pred[..., 4:]], dim=-1)
 
-        with record_function("yolox_loss.assign"), torch.no_grad():
+        with span("yolox_loss.assign"), torch.no_grad():
             fg, matched_gt, _ = simota_assign(gt_xywh, gt_cls, gt_valid, decoded, ctr_grid, cfg)
         # the targets at the matched gts; the class target's IoU is taken
         # again with its gradient, which reaches the boxes as in JAX

@@ -17,9 +17,9 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..losses.yolov5 import YOLOv5LossConfig, initial_balances, yolov5_loss
+from ..utils.trace import span, warmup
 from .ema import ema_update
 from .optim import Optimizer, OptimizerConfig, build_optimizer
 
@@ -89,7 +89,11 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
 
     ``collective``: data parallelism (``train/ddp.py``), which reduces the
     averaged gradients, the metrics and the balances over the ranks before
-    the optimizer update."""
+    the optimizer update.
+
+    The first call at each input shape runs in the span ``warmup.train_step``
+    (cuDNN's autotune, the allocator's growth), each phase of an update in a
+    ``train.*`` span (``utils/trace.py``)."""
     if isinstance(loss, YOLOv5LossConfig):
         cfg, anchors_t = loss, torch.as_tensor(anchors, dtype=torch.float32)
 
@@ -98,7 +102,14 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
     else:
         family_loss = loss
 
+    seen = set()  # (shape, dtype) of the images of the steps so far
+
     def train_step(state: TrainState, batch):
+        img = batch["img"]
+        with warmup("warmup.train_step", seen, (tuple(img.shape), img.dtype)):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         k = accumulate
         model = state.model
         model.train()
@@ -112,15 +123,15 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
         history = []
         for i in range(k):
             sl = slice(i * micro_b, (i + 1) * micro_b)
-            with record_function("train.forward"):
+            with span("train.forward"):
                 x = img[sl].to(compute_dtype) / 255.0
                 preds = model(x.permute(0, 3, 1, 2).contiguous())
-            with record_function("train.loss"):
+            with span("train.loss"):
                 loss_dict, balances = family_loss(preds, ann[sl], balances)
-            with record_function("train.backward"):
+            with span("train.backward"):
                 loss_dict["tot_loss"].backward()
             history.append({n: v.detach() for n, v in loss_dict.items()})
-        with record_function("train.optimizer"):
+        with span("train.optimizer"):
             grads = [p.grad for p in state.optimizer.params() if p.grad is not None]
             if k > 1:
                 torch._foreach_div_(grads, float(k))
@@ -129,7 +140,7 @@ def make_train_step(loss, anchors=None, accumulate: int = 1, do_ema: bool = True
                 balances = collective.balances(balances)
             grad_norm = state.optimizer.step()
         if do_ema:
-            with record_function("train.ema"):
+            with span("train.ema"):
                 state.ema_count += 1.0
                 ema_update(state.ema, model.state_dict(), state.ema_count)
         state.balances = balances.detach()

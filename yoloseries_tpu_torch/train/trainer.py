@@ -58,7 +58,6 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.dataset import DetectionDataset
 from ..data.device_aug import render_batch, render_method, render_staged
@@ -70,6 +69,7 @@ from ..models import create_model
 from ..ops.metrics import DetectionMetrics
 from ..parallel.dist import all_reduce_sum, process_count, process_index, shard_range
 from ..utils.meters import MeterBuffer
+from ..utils.trace import span, warmup
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .ddp import GlobalBatch, PerReplica, set_sync_bn, sync_replica_stats
 from .optim import _group_schedule
@@ -113,29 +113,32 @@ class Trainer:
 
         self.log = log
 
-        self.train_dataset = DetectionDataset(train_dirs[0], train_dirs[1], names_path,
-                                              input_size=cfg.input_size, aug=cfg.aug,
-                                              enable_aug=True, cache_images=cfg.cache_images)
-        self.num_class = self.train_dataset.num_class
-        self.val_dataset = None
-        if val_dirs is not None:
-            self.val_dataset = DetectionDataset(val_dirs[0], val_dirs[1], names_path,
-                                                input_size=cfg.input_size, aug=cfg.aug)
+        with span("setup.data"):
+            self.train_dataset = DetectionDataset(train_dirs[0], train_dirs[1], names_path,
+                                                  input_size=cfg.input_size, aug=cfg.aug,
+                                                  enable_aug=True, cache_images=cfg.cache_images)
+            self.num_class = self.train_dataset.num_class
+            self.val_dataset = None
+            if val_dirs is not None:
+                self.val_dataset = DetectionDataset(val_dirs[0], val_dirs[1], names_path,
+                                                    input_size=cfg.input_size, aug=cfg.aug)
         # this rank's rows of each batch: of each micro-batch on the global
         # batch's path, of the whole batch per replica (JAX's shard_map split)
         part = None
         if self.world > 1:
             part = (self.rank, self.world, 1 if self.per_replica_bn else cfg.accumulate)
-        self.train_loader = DataLoader(
-            self.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
-            max_labels=cfg.max_labels, seed=cfg.seed, workers=cfg.num_workers,
-            device_aug=cfg.device_aug, device_cache=cfg.device_cache, part=part)
+        with span("setup.loader"):
+            self.train_loader = DataLoader(
+                self.train_dataset, batch_size=cfg.batch_size * cfg.accumulate,
+                max_labels=cfg.max_labels, seed=cfg.seed, workers=cfg.num_workers,
+                device_aug=cfg.device_aug, device_cache=cfg.device_cache, part=part)
         # device_cache: the resized train set lives on the card, and a batch
         # brings only plan scalars and labels
         self._dev_cache = None
         if self.train_loader.device_cache:
-            self._dev_cache = torch.from_numpy(
-                np.ascontiguousarray(self.train_dataset._cache)).to(self.device)
+            with span("setup.data"):
+                self._dev_cache = torch.from_numpy(
+                    np.ascontiguousarray(self.train_dataset._cache)).to(self.device)
         self.steps_per_epoch = max(
             len(self.train_dataset) // (cfg.batch_size * cfg.accumulate), 1)
         cfg.optim = type(cfg.optim)(
@@ -149,19 +152,20 @@ class Trainer:
             model_kw["remat"] = True
         if cfg.hyp.get("s2d_stem", False):
             model_kw["s2d_stem"] = True
-        self.model = create_model(resolved_name, num_class=self.num_class, device="cpu",
-                                  seed=cfg.seed, **model_kw)
-        self._compute_dtype = compute_dtype
-        if isinstance(self._collective, GlobalBatch):
-            set_sync_bn(self.model)
-        loss_fn, balances0 = self.family.make_loss(cfg.hyp, self.num_class, cfg.input_size,
-                                                   **self._loss_kw)
-        decode_fn = self.family.make_decode(cfg.hyp, self.num_class, cfg.input_size)
-        self.state = create_train_state(self.model, cfg.optim, balances=balances0,
-                                        device=self.device)
-        self._step_fns = {tuple(cfg.input_size): make_train_step(
-            loss_fn, accumulate=cfg.accumulate, do_ema=cfg.do_ema,
-            compute_dtype=compute_dtype, collective=self._collective)}
+        with span("setup.model"):
+            self.model = create_model(resolved_name, num_class=self.num_class, device="cpu",
+                                      seed=cfg.seed, **model_kw)
+            self._compute_dtype = compute_dtype
+            if isinstance(self._collective, GlobalBatch):
+                set_sync_bn(self.model)
+            loss_fn, balances0 = self.family.make_loss(cfg.hyp, self.num_class, cfg.input_size,
+                                                       **self._loss_kw)
+            decode_fn = self.family.make_decode(cfg.hyp, self.num_class, cfg.input_size)
+            self.state = create_train_state(self.model, cfg.optim, balances=balances0,
+                                            device=self.device)
+            self._step_fns = {tuple(cfg.input_size): make_train_step(
+                loss_fn, accumulate=cfg.accumulate, do_ema=cfg.do_ema,
+                compute_dtype=compute_dtype, collective=self._collective)}
 
         # multi-scale training: a fresh /32 size in [0.5x, 1.5x] of the base
         # each update; "interpolate" resizes the base-size batch on the card
@@ -184,16 +188,19 @@ class Trainer:
         select_builder = (self.family.make_select(cfg.hyp, self.num_class, cfg.input_size)
                           if self.family.make_select else None)
         # the evaluator runs a second module that holds the eval weights
-        self._eval_model = copy.deepcopy(self.model)
-        self.evaluator = Evaluator(self._eval_model, decode_fn, eval_cfg,
-                                   select_fn=select_builder(eval_cfg) if select_builder else None,
-                                   device=self.device)
+        with span("setup.model"):
+            self._eval_model = copy.deepcopy(self.model)
+            self.evaluator = Evaluator(
+                self._eval_model, decode_fn, eval_cfg,
+                select_fn=select_builder(eval_cfg) if select_builder else None,
+                device=self.device)
         self.start_epoch = 0
         self.ckpt_dir = Path(cfg.output_dir) / "checkpoints"
         self._log_every = int(cfg.hyp.get("save_log_every", 50) or 0)
         self._lr_schedule = _group_schedule(cfg.optim, 0.0)
         # (global_it, data_t, iter_t, device metrics), read at log points
         self._pending = []
+        self._batch_shapes = set()  # of the batches _device_batch has seen
         self.history = []  # the metrics of every update, once read
         self.last_eval = None  # the metrics of the last evaluate()
         self._val_loader = None
@@ -268,8 +275,15 @@ class Trainer:
 
     def _device_batch(self, batch):
         """A batch on the card: uint8 images and f32 targets, or a plan
-        batch's fields, rendered there into the images."""
-        with record_function("train.h2d"):
+        batch's fields, rendered there into the images. The first batch of
+        each shape (a new pinned buffer, the render's first launches) runs
+        in the span ``warmup.device_batch``."""
+        key = ("plan", tuple(batch["dst_hw"])) if "plan" in batch else batch["img"].shape
+        with warmup("warmup.device_batch", self._batch_shapes, (key, batch["ann"].shape)):
+            return self._device_batch_body(batch)
+
+    def _device_batch_body(self, batch):
+        with span("train.h2d"):
             if "plan" not in batch:
                 return self._to_device({"img": batch["img"], "ann": batch["ann"]})
             arrays = {**batch["plan"], "ann": batch["ann"]}
@@ -277,7 +291,7 @@ class Trainer:
                 arrays["tiles"] = batch["tiles"]
             out = self._to_device(arrays)
         aug = self.train_dataset.aug
-        with record_function("train.render"):
+        with span("train.render"):
             img = render_batch(out.pop("tiles", None), out, out_hw=batch["dst_hw"],
                                tile_hw=self.train_dataset.input_size, fill=aug.fill_value,
                                lb_fill=aug.fill_value, method=render_method(aug),
