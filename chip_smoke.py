@@ -16,14 +16,20 @@ Phases (any failure exits non-zero and prints no result line):
    sorted and shuffled input; B1 at the path's shapes, at K=8192 and with
    max_keep cut inside a tile; B3 where the carry fills early, inside a
    strip, and at K not a multiple of 1024), the relation words bit for bit,
-   with ``torch.cuda.synchronize()`` after each launch;
+   with ``torch.cuda.synchronize()`` after each launch; then the BN + SiLU
+   epilogue (``csrc/bn_silu.cu``) bit for bit against its twin at the two
+   serving cells' shapes (f32 and bf16, SiLU on and off), and its device
+   time (CUDA events behind a spin) beside the twin's and its byte bound at
+   the B=256 stem and summed over the epilogues of a yolov5s B=256 and a
+   yolox_s B=16 forward;
 4. model: yolov5s at nc=80 from a seeded generator (7,235,389 parameters),
    640x640 B=1 f32 on the card against the same module on the CPU;
 5. serving: the port ``Evaluator`` on seeded uint8 batches (serving config
    at B=8 and B=256, serving TTA at B=2, whose three sorted branches reach
    B1 unsorted, protocol config at B=64, protocol TTA at B=2) and
    ``detect_batch`` once; each path's kernel launch counter is zeroed
-   before the path and must have grown after it; img/s and peak memory;
+   before the path and must have grown after it, and ``bn_silu.launches``
+   must have grown by 57 a forward; img/s and peak memory;
 6. kernel timings (CUDA events, and beside them the device time per call:
    CUDA events behind a spin kernel that hides the host's enqueue, and its
    split by kernel from torch.profiler where the profiler kept every
@@ -246,6 +252,7 @@ CUT_IN_TILE = "max_keep cut inside a tile"  # phase-3 cases of B1
 ALL_DEAD = "an all-dead image"
 WATCHDOG_S = 1100  # the whole script's limit is 1200 s
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: a spin the host's enqueue ends inside
+BN_SILU_BLOCKS = {"yolov5s": 57, "yolox_s": 66}  # ConvBnAct epilogues in a forward
 
 
 def log(*args):
@@ -412,6 +419,116 @@ def phase_kernels_vs_twins():
     if any(mismatches.values()):
         fail(f"kernel/twin mismatches {mismatches}")
     return mismatches
+
+
+def bn_silu_vectors(c, dev, gen, contracting=False):
+    """BN's four f32 vectors (weight, bias, mean, var) for ``c`` channels;
+    ``contracting``: |mul| < 1 and small shifts, so that passes repeated in
+    place stay finite."""
+    if contracting:
+        return (torch.rand(c, generator=gen, device=dev) * 0.5 + 0.5,
+                torch.randn(c, generator=gen, device=dev) * 0.1,
+                torch.randn(c, generator=gen, device=dev) * 0.1,
+                torch.rand(c, generator=gen, device=dev) + 1.0)
+    return (torch.rand(c, generator=gen, device=dev) * 2 + 0.1,
+            torch.randn(c, generator=gen, device=dev),
+            torch.randn(c, generator=gen, device=dev),
+            torch.rand(c, generator=gen, device=dev) * 3)
+
+
+def epilogue_shapes(name, b):
+    """(b, C, H, W, act) of every ``ConvBnAct`` epilogue of a ``name``
+    forward at 640, in order: the wrapper's calls in a B=1 forward on the
+    card, recorded."""
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.nn import layers
+
+    model = create_model(name, num_class=80, device="cuda", seed=0)
+    shapes, wrapped = [], layers.bn_silu
+
+    def record(y, *args, **kwargs):  # args: weight, bias, mean, var, eps, act
+        shapes.append((b, *y.shape[1:], args[5]))
+        return wrapped(y, *args, **kwargs)
+
+    layers.bn_silu = record
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 3, 640, 640, device="cuda"))
+    finally:
+        layers.bn_silu = wrapped
+    if len(shapes) != BN_SILU_BLOCKS[name]:
+        fail(f"{name}: {len(shapes)} epilogues took the kernel, want {BN_SILU_BLOCKS[name]}")
+    return shapes
+
+
+def bn_silu_times(shapes, gen):
+    """One pass over the epilogues of ``shapes`` in f32, each in place (as
+    the path runs) over a view of one buffer: (kernel device ms, CUDA events
+    behind a spin; the twin's ms, CUDA events; the byte bound in ms: every
+    element read once and written once over the memory rate)."""
+    from yoloseries_tpu_torch.kernels import bn_silu as k
+
+    dev = torch.device("cuda")
+    buf = torch.randn(max(math.prod(s[:4]) for s in shapes), generator=gen, device=dev)
+    cases = [(buf[:math.prod(s[:4])].view(s[:4]), bn_silu_vectors(s[1], dev, gen, True), s[4])
+             for s in shapes]
+
+    def kernel():
+        for y, vecs, act in cases:
+            k.bn_silu(y, *vecs, 1e-3, act, out=y)
+
+    def twin():
+        for y, vecs, act in cases:
+            k.bn_silu_plain(y, *vecs, 1e-3, act)
+
+    n_bytes = sum(8 * y.numel() for y, _, _ in cases)
+    return spun_ms(kernel), cuda_ms(twin, iters=3, warmup=1), n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_bn_silu(card):
+    """The BN + SiLU epilogue against its twin, bit for bit, at the serving
+    cells' shapes, then its times beside the twin's and its byte bound.
+    Returns its row of the kernels line (launches filled in by phase 5)."""
+    from yoloseries_tpu_torch.kernels import bn_silu as k
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bad = 0
+    for shape, what in (((256, 32, 320, 320), "the B=256 stem"),
+                        ((16, 32, 320, 320), "the B=16 stem"),
+                        ((16, 512, 20, 20), "B=16's smallest planes"),
+                        ((2, 8, 13, 13), "planes that split a vector")):
+        for dtype in (torch.float32, torch.bfloat16):
+            y = (torch.randn(shape, generator=gen, device=dev) * 4).to(dtype)
+            vecs = bn_silu_vectors(shape[1], dev, gen)
+            for act in (True, False):
+                want = k.bn_silu_plain(y, *vecs, 1e-3, act)
+                got = k.bn_silu(y, *vecs, 1e-3, act)
+                torch.cuda.synchronize()
+                n = int((got != want).sum())
+                bad += n
+                log(f"  bn_silu {tuple(shape)} ({what}) {str(dtype)[6:]} act={act}: "
+                    f"{n} mismatches of {y.numel()}")
+            del y, want, got
+    if bad:
+        fail(f"bn_silu: {bad} elements differ from the twin")
+    torch.cuda.empty_cache()
+    row = {"name": "bn_silu", "route": "cuda", "source": "yoloseries_tpu_torch/csrc/bn_silu.cu",
+           "replaces": None, "launches": 0, "mismatches": bad, "library_ms": None}
+    v5 = epilogue_shapes("yolov5s", 256)
+    for label, shapes in (("B=256 stem", v5[:1]), ("yolov5s B=256 forward", v5),
+                          ("yolox_s B=16 forward", epilogue_shapes("yolox_s", 16))):
+        device_ms, plain_ms, bound = bn_silu_times(shapes, gen)
+        torch.cuda.empty_cache()
+        row[label] = {"device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "launches": len(shapes)}
+        dev_txt = "not measured" if device_ms is None else (
+            f"{device_ms:.4f} ms, {bound / device_ms * 100:.1f}% of its byte bound's rate")
+        log(f"  bn_silu {label} ({len(shapes)} launches): device {dev_txt}; byte bound "
+            f"{bound:.4f} ms; plain twin {plain_ms:.4f} ms [{card}]")
+        if device_ms is not None and device_ms < bound:
+            fail(f"bn_silu {label}: measured under its byte bound")
+    return row
 
 
 def keeper_ranks(scores, keep_idx, keep_valid):
@@ -585,7 +702,7 @@ def phase_serving(model, card):
              ("protocol B=64", protocol, 64, "nms_greedy"),
              ("tta B=2", tta, 2, "matrix_nms_chunked")]
     rng = np.random.default_rng(0)
-    launches = {k: 0 for k in LAUNCH_COUNTERS}
+    launches = {k: 0 for k in LAUNCH_COUNTERS} | {"bn_silu": 0}
     captured = {}
     for label, cfg, b, kernel in paths:
         ev = Evaluator(model, yolov5_decode_fn(), cfg, yolov5_select_fn(cfg), device="cuda")
@@ -600,9 +717,12 @@ def phase_serving(model, card):
             out = ev(img)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        counts = read_counters()
+        counts = read_counters() | {"bn_silu": bn_silu_launches()}
         if counts[kernel] == 0:
             fail(f"{label}: {kernel} was not launched ({counts})")
+        forwards = 3 * (len(cfg.tta_scales) if cfg.use_tta else 1)  # a forward a branch
+        if counts["bn_silu"] != BN_SILU_BLOCKS["yolov5s"] * forwards:
+            fail(f"{label}: bn_silu launched {counts['bn_silu']} times in {forwards} forwards")
         for k, n in counts.items():
             launches[k] += n
         check_detections(out, b)
@@ -918,6 +1038,7 @@ def phase_timings(captured, launches, mismatches, card):
 
 KERNEL_GROUPS = (  # (group, substrings of the device event name), first match wins
     ("NMS kernels", ("nms_kernel", "nms_relation_kernel", "nms_fixpoint_kernel")),
+    ("BN + SiLU kernel", ("bn_silu_kernel",)),
     ("H2D copy", ("Memcpy HtoD",)),
     ("convolution", ("conv", "fprop", "xmma", "implicit_gemm", "cudnn", "gemm")),
     ("sort / top-k", ("sort", "Sort", "radix", "topk")),
@@ -2053,6 +2174,13 @@ def kernels():
             "matrix_nms_chunked": m.matrix_nms_chunked}
 
 
+def bn_silu_launches():
+    """The BN + SiLU kernel's launches since the last ``zero_counters``."""
+    from yoloseries_tpu_torch.utils import trace
+
+    return trace.totals()["counters"].get("bn_silu.launches", 0)
+
+
 def zero_counters():
     from yoloseries_tpu_torch.utils import trace
 
@@ -2157,6 +2285,7 @@ def EvalConfig(**kw):  # noqa: N802 (the port's EvalConfig, imported where it is
 
 SPLIT_GROUPS = (  # (group, substrings of the device event name), first match wins
     ("NMS kernels", ("nms_kernel", "nms_relation_kernel", "nms_fixpoint_kernel")),
+    ("BN + SiLU kernel", ("bn_silu_kernel",)),
     ("H2D copy", ("Memcpy HtoD",)),
     ("convolution", ("conv", "fprop", "xmma", "implicit_gemm", "cudnn", "gemm")),
     ("BN affine and residual adds (mul, add)", ("MulFunctor", "AddFunctor", "CUDAFunctor_add")),
@@ -4193,10 +4322,12 @@ def main():
     phase_build()
     log("== 3. kernels vs plain twins")
     mismatches = phase_kernels_vs_twins()
+    bn_row = phase_bn_silu(card)
     log("== 4. model")
     model = phase_model().cuda().eval()
     log("== 5. serving")
     launches, captured = phase_serving(model, card)
+    bn_row["launches"] = launches["bn_silu"]
     log("== 6. kernel timings at the serving path's candidates")
     rows = phase_timings(captured, launches, mismatches, card)
     log("== 7. where the device time goes")
@@ -4272,6 +4403,7 @@ def main():
     for row in rows:
         row["launches"] += orbax_phase["launches"].get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    rows.append(bn_row)
     print(json.dumps({"kernels": rows}, separators=(",", ":")))  # compact: ~20 KB
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,7 @@ _ENTRIES = {
     "yst_nms_matrix_chunked": "ppiiifipppp",
     "yst_step_probe": "iipp",  # latency probes, measurement only
     "yst_warp_step_probe": "ipp",
+    "yst_bn_silu": "ppiiippppfiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

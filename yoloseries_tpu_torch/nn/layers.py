@@ -10,7 +10,9 @@ BatchNorm conventions: eps 1e-3 (1e-5 for ``BottleneckCSP``'s fuse BN),
 torch momentum 0.03 (flax 0.97), unbiased running variance (torch's own
 accumulation), and eval mode computed as ``x * mul + shift`` with
 ``mul = weight * rsqrt(var + eps)``, the same arithmetic as the JAX
-``TorchBatchNorm``.
+``TorchBatchNorm``. With grad off on a CUDA device, ``ConvBnAct`` takes its
+eval BN and SiLU in one kernel (``kernels/bn_silu.py``, bit-identical to the
+ops) written over the conv's output (``takes_bn_silu_kernel``).
 
 Compute dtype: parameters and BN statistics stay f32 and the activations
 keep the dtype they arrive in (the model casts its input once). A conv casts
@@ -39,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.bn_silu import DTYPE_CODES, bn_silu
+
 __all__ = [
     "BatchNorm",
     "Conv2d",
@@ -65,6 +69,7 @@ __all__ = [
     "DetectHead",
     "detect_bias_init",
     "remat_context",
+    "takes_bn_silu_kernel",
     "upsample2x",
     "max_pool_same",
 ]
@@ -198,6 +203,16 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def takes_bn_silu_kernel(bn: nn.Module, y: torch.Tensor) -> bool:
+    """Whether ``ConvBnAct`` computes its BN and activation with the CUDA
+    kernel ``kernels/bn_silu.py``: an eval-mode ``BatchNorm`` with grad off
+    (``Evaluator``'s inference mode), ``y`` contiguous on a CUDA device in
+    f32 or bf16. Training, grad on, f64, the CPU and the folded block (whose
+    ``bn`` is an ``nn.Identity``) keep the plain ops."""
+    return (isinstance(bn, BatchNorm) and not bn.training and not torch.is_grad_enabled()
+            and y.device.type == "cuda" and y.dtype in DTYPE_CODES and y.is_contiguous())
+
+
 class ConvBnAct(nn.Module):
     """Conv (no bias) + BatchNorm(eps 1e-3) + SiLU; ``groups`` as in
     ``nn.Conv2d`` (``groups=in_channels``: depthwise)."""
@@ -215,7 +230,11 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
-        x = self.bn(y)
+        bn = self.bn
+        if takes_bn_silu_kernel(bn, y):  # over y: nothing else holds it
+            return bn_silu(y, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
+                           self.act, out=y)
+        x = bn(y)
         return (F.silu(x) if self.act else x).to(y.dtype)
 
 
