@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .flops import epilogue_elements
+
 FP32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 IOU_OPS = 14  # min/max/sub/clamp/mul/add/div/compare per IoU evaluation
@@ -23,6 +25,14 @@ def nms_bound_ms(batch: int, k: int, max_keep: int, ious: int) -> float:
     ``reference/detect.py``)."""
     n_bytes = batch * k * (16 + 4) + batch * max_keep * (4 + 1)
     return max(n_bytes / HBM_BYTES_PER_S, ious * IOU_OPS / FP32_FLOP_PER_S) * 1e3
+
+
+def bn_silu_bound_ms(cfg: dict, batch: int, size: int) -> float:
+    """Least time of one forward's eval BN + SiLU epilogues on the card, by
+    bytes: every element of each conv + BN + SiLU block's output read once
+    and written once in f32 (8 bytes), over the memory rate; the
+    per-channel scales and shifts are left out (under 0.01%)."""
+    return 8 * sum(epilogue_elements(cfg, batch, size)) / HBM_BYTES_PER_S * 1e3
 
 
 def render_bound_ms(batch) -> float:

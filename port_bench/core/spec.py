@@ -6,8 +6,14 @@ entry, whose ``file`` holds its sizes) and a traffic mix
 ``drivers/<kind>.py``). Per-layer metrics are read by
 ``metrics/<metric name>.py``, or by the file of the name before its first
 dot (a function ``read(ctx)``), and the limits of
-the cell's output check are in ``checks/<cell name>.json``. Adding a cell,
-a mix, a driver or a metric adds files and entries and edits none.
+the cell's output check are in ``checks/<cell name>.json``. The plain
+reference finds a configuration's detector family, by the file's
+``family`` key, in ``reference/families/<family>.py``. Adding a cell, a
+mix, a driver or a metric adds files and entries and edits none; so does
+adding a configuration, of a benchmarked family or of a new one: a family
+module (with its loss under ``reference/``, where the family has a new
+one), a config file, a traffic file, a checks file, and the entries in
+``BENCHMARK.json``.
 """
 
 from __future__ import annotations

@@ -12,50 +12,49 @@ live box and kills every box whose IoU with it is >= iou_thr, up to
 ``max_keep`` keepers; the merge drops a keeper that no other live candidate
 overlaps by IoU > iou_thr, where 1 < live candidates < 3000.
 
-The flat index of a candidate is ((y * W + x) * A + a) per stage, stages
-concatenated in stride order, as the JAX package numbers them.
+The family's module (``families/<family>.py``) decodes the raw maps; the
+flat index of a candidate is ((y * W + x) * A + a) per stage, A the
+anchors a cell (1 where the family has none), stages concatenated in
+stride order, as the JAX package numbers them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .families import family
+
 CLASS_OFFSET = 4096.0
-STRIDES = (8, 16, 32)
 MERGE_GATE_MAX = 3000
 
 
-def _rows(m, na):
+def stage_rows(m, na):
+    """A raw map (B, na * C, H, W) as rows (B, H * W * na, C) in the flat
+    order, with each row's anchor index (N,) and its cell's (x, y) (N, 2)."""
     b, c, h, w = m.shape
     rows = m.float().reshape(b, na, c // na, h, w).permute(0, 3, 4, 1, 2)
-    return rows.reshape(b, h * w * na, c // na), h, w
+    rows = rows.reshape(b, h * w * na, c // na)
+    flat = torch.arange(rows.shape[1], device=rows.device)
+    cell = flat // na
+    return rows, flat % na, torch.stack([(cell % w).float(), (cell // w).float()], -1)
+
+
+def candidates(xy, wh, obj, cls_raw):
+    """One stage's (boxes xyxy, obj, cls max prob, cls id) from box centres
+    and sizes, objectness probabilities and class logits."""
+    return (torch.cat([xy - wh / 2, xy + wh / 2], -1), obj, torch.sigmoid(cls_raw.amax(-1)),
+            cls_raw.argmax(-1))
+
+
+def concat(parts):
+    """The stages' candidates, concatenated in stage order."""
+    return tuple(torch.cat(p, 1) for p in zip(*parts))
 
 
 def decode(maps, cfg):
     """Raw maps -> (boxes xyxy (B, N, 4), obj (B, N), cls max prob (B, N),
-    cls id (B, N)) over every stage."""
-    fam = cfg["family"]
-    anchors = cfg.get("anchors")
-    na = len(anchors[0]) if fam == "yolov5" else 1
-    parts = []
-    for si, (m, s) in enumerate(zip(maps, STRIDES)):
-        r, h, w = _rows(m, na)
-        flat = torch.arange(r.shape[1], device=r.device)
-        cell = flat // na
-        grid = torch.stack([(cell % w).float(), (cell // w).float()], -1)
-        if fam == "yolov5":
-            anc = torch.tensor(anchors[si], dtype=torch.float32, device=r.device)[flat % na]
-            sig = torch.sigmoid(r[..., :4])
-            xy = (sig[..., :2] * 2.0 - 0.5 + grid) * s
-            wh = (sig[..., 2:4] * 2.0) ** 2 * anc
-        else:
-            xy = (r[..., :2] + grid) * s
-            wh = torch.exp(r[..., 2:4].clamp(-20.0, 20.0)) * s
-        obj = torch.sigmoid(r[..., 4])
-        cls_raw = r[..., 5:]
-        parts.append((torch.cat([xy - wh / 2, xy + wh / 2], -1), obj,
-                      torch.sigmoid(cls_raw.amax(-1)), cls_raw.argmax(-1)))
-    return tuple(torch.cat(p, 1) for p in zip(*parts))
+    cls id (B, N)) over every stage, by the configuration's family."""
+    return family(cfg).decode(maps, cfg)
 
 
 def pairwise_iou(a, b):

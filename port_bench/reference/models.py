@@ -1,13 +1,14 @@
-"""Plain PyTorch forwards of YOLOv5 and YOLOX over a flat state dict.
+"""Plain PyTorch building blocks of the detectors' forwards over a flat
+state dict, and the entry points that run a configuration's family
+(``families/<family>.py``) on them.
 
-Written from the published architectures (ultralytics/yolov5
-``models/yolov5s.yaml``: 6x6/2 stem, CSPDarknet with C3 blocks, SPPF,
-PANet, one 1x1 detect conv per scale; Megvii-BaseDetection/YOLOX
-``exps/default/yolox_s.py``: the same CSP trunk under ``neck.``, then a
-decoupled head per scale), in f32 with ``F.conv2d`` and nothing else of a
-library: BatchNorm with eps 1e-3 in eval form (``x * mul + shift``), SiLU,
-nearest 2x upsampling, 5x5 stride-1 max pools. Block counts and widths come
-from the configuration's ``depth_multiple`` / ``width_multiple``.
+Written from the published architectures (the shared trunk: ultralytics/
+yolov5 ``models/yolov5s.yaml``'s 6x6/2 stem, CSPDarknet with C3 blocks,
+SPPF and PANet; each family's head in its module), in f32 with
+``F.conv2d`` and nothing else of a library: BatchNorm with eps 1e-3 in
+eval form (``x * mul + shift``), SiLU, nearest 2x upsampling, 5x5 stride-1
+max pools. Block counts and widths come from the configuration's
+``depth_multiple`` / ``width_multiple``.
 
 Parameter names follow the state dict keys the port's modules carry, so one
 state dict made here loads into the port with ``load_state_dict(strict=True)``
@@ -20,15 +21,16 @@ and stores them as its running statistics), ``train`` (every BN normalises
 with its batch statistics, two-pass, in the centred form
 ``(x - mean) / sqrt(var + eps) x gamma + beta``, and moves its running statistics
 towards them by ``BN_MOMENTUM``, the variance unbiased, as PyTorch's
-``BatchNorm2d`` defines it) and plain eval.
+``BatchNorm2d`` defines it) and plain eval. In every mode it lists the
+element count of each conv + BN + SiLU block's output (``epilogues``).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
+
+from .families import family
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # the recipe's: flax's 0.97
@@ -44,6 +46,7 @@ class Net:
             raise ValueError(f"mode {mode!r}")
         self.sd, self.mode = sd, mode
         self.convs = []  # (weight key, bias key or None) in forward order, build mode
+        self.epilogues = []  # elements of each cba's BN output, in forward order
 
     def _param(self, key, shape, like, fill):
         if key not in self.sd:
@@ -87,7 +90,9 @@ class Net:
 
     def cba(self, p, x, cout, k, s=1, pad=None):
         """Conv (no bias) + BN + SiLU."""
-        return F.silu(self.bn(f"{p}.bn", self.conv(f"{p}.conv", x, cout, k, s, pad)))
+        y = self.bn(f"{p}.bn", self.conv(f"{p}.conv", x, cout, k, s, pad))
+        self.epilogues.append(y.numel())
+        return F.silu(y)
 
 
 def _c3(net, p, x, cout, n, shortcut):
@@ -139,57 +144,13 @@ def csp_trunk(net, x, cfg, pre=""):
     return [small, mid, large]
 
 
-def yolov5_forward(net, x, cfg):
-    """Raw maps (B, A*(5+nc), H/s, W/s), s = 8, 16, 32."""
-    no = len(cfg["anchors"][0]) * (5 + cfg["nc"])
-    feats = csp_trunk(net, x, cfg)
-    return [net.conv(f"detect.{name}", f, no, 1, bias=True)
-            for name, f in zip(("detect_small", "detect_mid", "detect_large"), feats)]
-
-
-def yolox_forward(net, x, cfg):
-    """Raw maps (B, 5+nc, H/s, W/s) in the channel order [reg(4), obj, cls]."""
-    feats = csp_trunk(net, x, cfg, pre="neck.")
-    hw = round(cfg["head_width"] * cfg["width_multiple"])
-    out = []
-    for name, f in zip(("pred_small", "pred_middle", "pred_large"), feats):
-        p = f"detect.{name}"
-        stem = net.cba(f"{p}.stem", f, hw, 3)
-        cls = net.conv(f"{p}.cls.1", net.cba(f"{p}.cls.0", stem, hw, 3), cfg["nc"], 1, bias=True)
-        reg_feat = net.cba(f"{p}.conv.0", stem, hw, 3)
-        reg = net.conv(f"{p}.reg", reg_feat, 4, 1, bias=True)
-        obj = net.conv(f"{p}.cof", reg_feat, 1, 1, bias=True)
-        out.append(torch.cat([reg, obj, cls], 1))
-    return out
-
-
-FORWARDS = {"yolov5": yolov5_forward, "yolox": yolox_forward}
-
-
 def forward(sd, x, cfg, mode="eval"):
-    return FORWARDS[cfg["family"]](Net(sd, mode), x, cfg)
+    return family(cfg).forward(Net(sd, mode), x, cfg)
 
 
 def output_convs(cfg):
-    """(weight key, bias key, channel slice of the raw map, map index, std,
-    bias values) of each output conv: the convs whose scale decides how
-    scores spread. Random weights put every score at the prior; the harness
-    scales each output conv so that its channels have ``std`` on a
-    calibration batch and sets its bias (YOLOv5: std 1.5, bias 0; YOLOX:
-    obj and cls std 1.5, box std 0.5 with log 4 on w and h, so boxes sit
-    near their cell and about four strides wide, as YOLOv5's anchors make
-    its boxes)."""
-    if cfg["family"] == "yolov5":
-        return [(f"detect.{n}.weight", f"detect.{n}.bias", slice(None), i, 1.5, 0.0)
-                for i, n in enumerate(("detect_small", "detect_mid", "detect_large"))]
-    box = (0.0, 0.0, math.log(4.0), math.log(4.0))
-    out = []
-    for i, n in enumerate(("pred_small", "pred_middle", "pred_large")):
-        p = f"detect.{n}"
-        out += [(f"{p}.reg.weight", f"{p}.reg.bias", slice(0, 4), i, 0.5, box),
-                (f"{p}.cof.weight", f"{p}.cof.bias", slice(4, 5), i, 1.5, 0.0),
-                (f"{p}.cls.1.weight", f"{p}.cls.1.bias", slice(5, None), i, 1.5, 0.0)]
-    return out
+    """The family's output convs (``families/__init__.py``)."""
+    return family(cfg).output_convs(cfg)
 
 
 def build_state(cfg, device, size=64):
@@ -198,5 +159,5 @@ def build_state(cfg, device, size=64):
     sd = {}
     net = Net(sd, "build")
     with torch.no_grad():
-        FORWARDS[cfg["family"]](net, torch.zeros(1, 3, size, size, device=device), cfg)
+        family(cfg).forward(net, torch.zeros(1, 3, size, size, device=device), cfg)
     return sd, net.convs

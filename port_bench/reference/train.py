@@ -14,8 +14,7 @@
 * ``update``: one optimizer update over ``accumulate`` micro-batches: the
   train-mode forward of ``models.py`` (BN on batch statistics, which it
   also moves the running statistics towards), the family's loss
-  (``yolox_loss.py``, written from Megvii's; ``yolov5_loss.py``, from
-  ultralytics'), gradients by autograd, summed and divided by
+  (``families/<family>.py::loss``), gradients by autograd, summed and divided by
   the micro-batch count; then SGD as the preset states it: clipping at the
   global norm, the three groups (conv weights with weight decay; BN
   scales; every bias), Nesterov momentum, and the warmup's write-and-hold
@@ -36,7 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import models, yolov5_loss, yolox_loss
+from . import models
+from .families import family
 
 _f32 = np.float32
 
@@ -154,15 +154,7 @@ class SGD:
 def family_loss(cfg: dict, hyp: dict, size: int, device):
     """(loss(maps, ann, balances) -> (loss dict, new balances), the initial
     balances) of the configuration's family."""
-    family = {"yolov5": yolov5_loss, "yolox": yolox_loss}[cfg["family"]]
-    if cfg["family"] == "yolov5":
-        def loss(maps, ann, balances):
-            return yolov5_loss.yolov5_loss(maps, ann, balances, cfg["anchors"], hyp, cfg["nc"],
-                                           size)
-    else:
-        def loss(maps, ann, balances):
-            return yolox_loss.yolox_loss(maps, ann, balances, hyp, cfg["nc"], size)
-    return loss, family.initial_balances(device)
+    return family(cfg).loss(cfg, hyp, size, device)
 
 
 def update(sd: dict, params: dict, opt: SGD, cfg: dict, loss, imgs, ann, balances,

@@ -11,6 +11,11 @@ from port_bench.core import spec
 BENCH = spec.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# a width may never be reduced: a hidden, intermediate, latent, state or
+# projection size, a ``_dim`` or ``_rank``, a head size, an expansion factor,
+# the experts per token; here also a width multiple or a head's width
+WIDTH = re.compile(r"_dim$|_rank$|width|hidden|intermediate|latent|state|proj|head|expan"
+                   r"|experts_per")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
@@ -36,9 +41,9 @@ def test_names_and_units():
 @pytest.mark.parametrize("cell_name", CELLS)
 def test_cell_pieces(cell_name):
     cell = spec.cell(BENCH, cell_name)
-    assert cell["chips"] == 1 and len(cell["why"]) <= 200
+    assert cell["chips"] in (1, 4) and len(cell["why"]) <= 200
     cfg = spec.config(BENCH, cell["config"])
-    assert cfg["name"] == cell["config"] and cfg["reduced"] == []
+    assert cfg["name"] == cell["config"]
     t = spec.traffic(cell["traffic"])
     driver = spec.driver(t["kind"])
     assert callable(driver.run)
@@ -49,6 +54,22 @@ def test_cell_pieces(cell_name):
     assert layer and all(m["moves"] in e2e for m in layer)
     for m in layer:
         assert callable(spec.reader(m["name"]))
+
+
+def test_four_chip_cells_are_few():
+    # at most a quarter of the cells, rounded down, ask for 4 chips; one always may
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_reduced_lists_keys_of_the_file(name):
+    entry = next(c for c in BENCH["configs"] if c["name"] == name)
+    cfg = spec.config(BENCH, name)
+    assert isinstance(entry["reduced"], list) and len(entry["reduced"]) <= 16
+    assert entry["reduced"] == cfg["reduced"]
+    assert set(entry["reduced"]) <= set(cfg) - {"name", "source", "reduced"}
+    assert not [k for k in entry["reduced"] if WIDTH.search(k) or not NAME.match(k)]
 
 
 def test_metric_workloads_are_cells():

@@ -15,24 +15,29 @@ from port_bench.reference import models
 
 CONFIGS = {c["name"]: json.loads((spec.ROOT / c["file"]).read_text())
            for c in spec.load_bench()["configs"]}
-# (parameters, FLOPs of one 640x640 image: convolutions, 2 a multiply-add)
+# (parameters, FLOPs of one 640x640 image: convolutions, 2 a multiply-add),
+# pinned; a configuration with none is held to its ``published`` block alone
 COUNTS = {"yolov5s": (7_235_389, 16_433_561_600), "yolox_s": (8_958_271, 24_142_745_600)}
 FORBIDDEN = {"yoloseries_tpu", "yoloseries_tpu_torch", "jax", "jaxlib", "flax"}
 
 
-@pytest.mark.parametrize("name", sorted(COUNTS))
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_counts_at_640(name):
     cfg = CONFIGS[name]
     sd, _ = models.build_state(cfg, "meta")
     params = sum(v.numel() for k, v in sd.items()
                  if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
-    assert (params, forward_flops(cfg, 640)) == COUNTS[name]
-    if "parameters" in cfg["published"]:
-        assert params == cfg["published"]["parameters"]
-    assert abs(forward_flops(cfg, 640) / 1e9 - cfg["published"]["gflops_640"]) < 3.0
+    if name in COUNTS:
+        assert (params, forward_flops(cfg, 640)) == COUNTS[name]
+    published = cfg["published"]
+    if "parameters" in published:
+        assert params == published["parameters"]
+    if "parameters_M" in published:  # as rounded to the tenth
+        assert abs(params / 1e6 - published["parameters_M"]) <= 0.05
+    assert abs(forward_flops(cfg, 640) / 1e9 - published["gflops_640"]) < 3.0
 
 
-@pytest.mark.parametrize("name", sorted(COUNTS))
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_matches_the_port(name):
     from yoloseries_tpu_torch.models import create_model
 
@@ -131,7 +136,7 @@ def _imports(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("folder", ["reference", "core"])
+@pytest.mark.parametrize("folder", ["reference", "core", "reference/families"])
 def test_no_program_or_jax_imports(folder):
     for path in sorted((spec.PKG / folder).glob("*.py")):
         assert not set(_imports(path)) & FORBIDDEN, path

@@ -121,3 +121,13 @@ def test_postprocess_share():
     partial = Summary(window_us=200.0, busy_us=100.0, launches=4, kernels=3,
                       ranges={"eval.nms": 15.0})
     assert read({"summary": partial}) is None  # coverage short of whole
+
+
+def test_assign_share_by_family():
+    # the range of the configuration's family, and no other family's
+    read = spec.reader("assign_share_pct.yolox")
+    s = _summary({"yolox_loss.assign": 17.0, "yolov8_loss.assign": 30.0})
+    assert read({"summary": s, "cfg": {"family": "yolox"}}) == pytest.approx(17.0)
+    assert read({"summary": s, "cfg": {"family": "yolov8"}}) == pytest.approx(30.0)
+    assert read({"summary": s, "cfg": {"family": "yolov5"}}) is None
+    assert read({"summary": None, "cfg": {"family": "yolox"}}) is None

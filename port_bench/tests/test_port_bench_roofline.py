@@ -1,13 +1,18 @@
-"""The NMS bound and the IoU count it rests on, and the render bound, on
-fixed inputs."""
+"""The NMS bound and the IoU count it rests on, the render bound, and the
+BN + SiLU bound and its reader, on fixed inputs."""
 
 import numpy as np
 import pytest
 import torch
 
-from port_bench.core.roofline import (FP32_FLOP_PER_S, HBM_BYTES_PER_S, IOU_OPS, nms_bound_ms,
-                                      render_bound_ms)
+from port_bench.core import spec
+from port_bench.core.flops import epilogue_elements
+from port_bench.core.roofline import (FP32_FLOP_PER_S, HBM_BYTES_PER_S, IOU_OPS,
+                                      bn_silu_bound_ms, nms_bound_ms, render_bound_ms)
+from port_bench.core.trace import Summary
 from port_bench.reference import detect
+
+BENCH = spec.load_bench()
 
 
 def test_bound_by_bytes():
@@ -42,3 +47,43 @@ def test_render_bound_by_bytes():
     batch = {"plan": plan, "ann": np.zeros((2, 300, 6), np.float32), "dst_hw": (64, 32)}
     moved = 2 * 100 * 50 * 3 + rects.nbytes + 8 + 2 * 64 * 32 * 3
     assert render_bound_ms(batch) == pytest.approx(moved / HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("name,epilogues", [("yolov5s", 57), ("yolox_s", 66)])
+def test_bn_silu_epilogues(name, epilogues):
+    # one a ``ConvBnAct`` of the port's model, as K1's ``bn_silu.launches`` counts them
+    from yoloseries_tpu_torch.models import create_model
+    from yoloseries_tpu_torch.nn.layers import ConvBnAct
+
+    cfg = spec.config(BENCH, name)
+    assert len(epilogue_elements(cfg, 2, 64)) == epilogues
+    model = create_model(cfg["program_model"], num_class=cfg["nc"], device="meta", seed=0)
+    assert sum(isinstance(m, ConvBnAct) for m in model.modules()) == epilogues
+
+
+@pytest.mark.parametrize("name,batch,ms", [("yolov5s", 256, 14.4610), ("yolox_s", 16, 1.0271)])
+def test_bn_silu_bound(name, batch, ms):
+    cfg = spec.config(BENCH, name)
+    elements = sum(epilogue_elements(cfg, batch, 640))
+    assert bn_silu_bound_ms(cfg, batch, 640) == pytest.approx(
+        elements * 8 / HBM_BYTES_PER_S * 1e3)
+    assert bn_silu_bound_ms(cfg, batch, 640) == pytest.approx(ms, rel=0.01)
+
+
+def test_bn_silu_reader():
+    read = spec.reader("bn_silu_roofline.serve")
+    assert spec.reader("bn_silu_roofline.tail") is not None
+    dev = [("void bn_silu_kernel<float, true>(Args)", 0.0, 300.0),
+           ("void bn_silu_kernel<float, false>(Args)", 300.0, 500.0),
+           ("cutlass_conv", 500.0, 900.0)]
+    s = Summary(window_us=1000.0, busy_us=900.0, launches=3, kernels=3, device=dev)
+    cfg = spec.config(BENCH, "yolox_s")
+    ctx = {"summary": s, "traced": [0, 1], "cfg": cfg,
+           "traffic": {"batch": 2, "image_size": 64}}
+    bound_us = 2 * bn_silu_bound_ms(cfg, 2, 64) * 1e3  # two calls over 500 us
+    assert read(ctx) == pytest.approx(100.0 * bound_us / 500.0)
+    assert read(dict(ctx, traced=[])) is None
+    none_ran = Summary(window_us=1000.0, busy_us=400.0, launches=1, kernels=1,
+                       device=dev[2:])
+    assert read(dict(ctx, summary=none_ran)) is None
+    assert read(dict(ctx, summary=None)) is None
