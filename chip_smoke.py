@@ -2908,6 +2908,8 @@ AF_GROUPS = (  # (part, record_function ranges), the profiler's device time with
     ("  of it the assigner", ("yolox_loss.assign", "yolov8_loss.assign", "yolov7_loss.assign",
                               "retinanet_loss.assign", "fcos_loss.assign")),
     ("  of it YOLOv7's winner step", ("yolov7_loss.winners",)),
+    ("  of it YOLOv8's DFL decode", ("yolov8_loss.decode",)),
+    ("  of it YOLOv8's loss terms", ("yolov8_loss.terms",)),
     ("optimizer", ("train.optimizer",)),
     ("EMA", ("train.ema",)),
 )  # the backward runs on autograd's thread, outside the ranges: the rest of the busy time

@@ -16,6 +16,10 @@ focal loss, the dense form of ``yoloseries_tpu/losses/yolov8.py``.
   focal factor), the score-weighted CIoU and the DFL over the assigned
   cells, each over the total target score, all times B.
 
+Spans (``utils/trace.py``): ``yolov8_loss.decode`` (the DFL decode of every
+cell), ``yolov8_loss.assign`` (TAL) and ``yolov8_loss.terms`` (the loss
+terms after the assignment).
+
 The grid and the stride of each cell come from each map's own (h, w) and
 ``strides``. The assignment runs ``image_chunk`` images at a time. Maps are
 NCHW (B, 4*reg + nc, H, W) at strides 4/8/16/32; rows are read in the
@@ -168,13 +172,13 @@ def yolov8_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
     if reduce is not None:
         bsz = reduce(torch.full((), float(bsz), device=dev))
     nc, reg = cfg.num_class, cfg.reg
-    grids, strides_col = v8_grid([p.shape[2:] for p in stage_preds], cfg.strides, dev)
-    grid_px = grids * strides_col
-
-    all_preds = flat_maps(stage_preds)  # (B, N, 4*reg + nc)
-    pred_dfl, pred_cls = all_preds[..., :4 * reg], all_preds[..., 4 * reg:]
-    pred_xyxy = tblr2xyxy(dfl_decode(pred_dfl, reg), grids)  # grid units
-    pred_xyxy_px = pred_xyxy * strides_col
+    with span("yolov8_loss.decode"):
+        grids, strides_col = v8_grid([p.shape[2:] for p in stage_preds], cfg.strides, dev)
+        grid_px = grids * strides_col
+        all_preds = flat_maps(stage_preds)  # (B, N, 4*reg + nc)
+        pred_dfl, pred_cls = all_preds[..., :4 * reg], all_preds[..., 4 * reg:]
+        pred_xyxy = tblr2xyxy(dfl_decode(pred_dfl, reg), grids)  # grid units
+        pred_xyxy_px = pred_xyxy * strides_col
 
     tar_xyxy = targets[..., 0:4].float()
     tar_valid = targets[..., 4] >= 0
@@ -183,38 +187,41 @@ def yolov8_loss(stage_preds: Sequence[torch.Tensor], targets: torch.Tensor,
     with span("yolov8_loss.assign"), torch.no_grad():
         fg, matched_gt, norm_metric = tal_assign(pred_xyxy_px, torch.sigmoid(pred_cls),
                                                  tar_xyxy, tar_cls, tar_valid, grid_px, cfg)
-    fgf = fg.float()
-    m_cls = torch.take_along_dim(tar_cls, matched_gt, 1)
-    m_box = torch.take_along_dim(tar_xyxy, matched_gt[..., None], 1)
-    cls_score = F.one_hot(m_cls, nc).float() * (norm_metric * fgf)[..., None]
-    tar_score_sum = cls_score.sum()
-    if reduce is not None:
-        tar_score_sum = reduce(tar_score_sum.clone())
-    tar_score_sum = tar_score_sum.clamp_min(1.0)
+    with span("yolov8_loss.terms"):
+        fgf = fg.float()
+        m_cls = torch.take_along_dim(tar_cls, matched_gt, 1)
+        m_box = torch.take_along_dim(tar_xyxy, matched_gt[..., None], 1)
+        cls_score = F.one_hot(m_cls, nc).float() * (norm_metric * fgf)[..., None]
+        tar_score_sum = cls_score.sum()
+        if reduce is not None:
+            tar_score_sum = reduce(tar_score_sum.clone())
+        tar_score_sum = tar_score_sum.clamp_min(1.0)
 
-    bce = bce_with_logits(pred_cls, cls_score, cfg.cls_pos_weight)
-    if cfg.use_focal_factor:
-        bce = bce * focal_loss_factor(pred_cls, cls_score, cfg.focal_loss_gamma,
-                                      cfg.focal_loss_alpha)
-    cls_loss = bce.sum() / tar_score_sum
+        bce = bce_with_logits(pred_cls, cls_score, cfg.cls_pos_weight)
+        if cfg.use_focal_factor:
+            bce = bce * focal_loss_factor(pred_cls, cls_score, cfg.focal_loss_gamma,
+                                          cfg.focal_loss_alpha)
+        cls_loss = bce.sum() / tar_score_sum
 
-    box_grid = m_box / strides_col
-    weight = cls_score.sum(-1)
-    iou_loss = ((1.0 - _ciou_xyxy(pred_xyxy, box_grid)) * weight * fgf).sum() / tar_score_sum
+        box_grid = m_box / strides_col
+        weight = cls_score.sum(-1)
+        iou_loss = (((1.0 - _ciou_xyxy(pred_xyxy, box_grid)) * weight * fgf).sum()
+                    / tar_score_sum)
 
-    tar_tblr = xyxy2tblr(box_grid, grids).clamp(0.0, reg - 1 - 0.01)
-    tl = torch.floor(tar_tblr).long()
-    wr = tar_tblr - tl
-    wl = 1.0 - wr
-    logp = torch.log_softmax(pred_dfl.unflatten(-1, (4, reg)), dim=-1)
-    ce_l = -torch.take_along_dim(logp, tl[..., None], dim=-1)[..., 0]
-    ce_r = -torch.take_along_dim(logp, (tl + 1).clamp_max(reg - 1)[..., None], dim=-1)[..., 0]
-    dfl = ce_l * wl + ce_r * wr
-    dfl_loss = ((dfl.mean(-1) * weight * fgf).sum()) / tar_score_sum
+        tar_tblr = xyxy2tblr(box_grid, grids).clamp(0.0, reg - 1 - 0.01)
+        tl = torch.floor(tar_tblr).long()
+        wr = tar_tblr - tl
+        wl = 1.0 - wr
+        logp = torch.log_softmax(pred_dfl.unflatten(-1, (4, reg)), dim=-1)
+        ce_l = -torch.take_along_dim(logp, tl[..., None], dim=-1)[..., 0]
+        ce_r = -torch.take_along_dim(logp, (tl + 1).clamp_max(reg - 1)[..., None],
+                                     dim=-1)[..., 0]
+        dfl = ce_l * wl + ce_r * wr
+        dfl_loss = ((dfl.mean(-1) * weight * fgf).sum()) / tar_score_sum
 
-    cls_loss = cls_loss * cfg.cls_loss_scale * bsz
-    iou_loss = iou_loss * cfg.iou_loss_scale * bsz
-    dfl_loss = dfl_loss * cfg.dfl_loss_scale * bsz
+        cls_loss = cls_loss * cfg.cls_loss_scale * bsz
+        iou_loss = iou_loss * cfg.iou_loss_scale * bsz
+        dfl_loss = dfl_loss * cfg.dfl_loss_scale * bsz
     loss_dict = {
         "tot_loss": cls_loss + iou_loss + dfl_loss,
         "cls_loss": cls_loss.detach(),

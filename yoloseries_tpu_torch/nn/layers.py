@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.bn_silu import DTYPE_CODES, bn_silu
+from ..utils.trace import span
 
 __all__ = [
     "BatchNorm",
@@ -177,14 +178,23 @@ class BatchNorm(nn.BatchNorm2d):
         summed over the ranks (``parallel/dist.py::sum_over_ranks``, whose
         backward sums the gradient's reductions over the ranks too). Two
         passes in at least f32 (the mean, then the centred squares), the
-        affine in f32; every rank holds a batch of the same shape."""
+        affine in f32; every rank holds a batch of the same shape.
+
+        Tracing: each global statistic of the forward (this rank's
+        per-channel sums, their sum over the ranks, the division) runs in
+        the span ``bn.global_sums``, whose device range is anchored by the
+        local sums and the division on either side of the collective. The
+        backward's reductions over the ranks run on autograd's thread, in
+        no span."""
         from ..parallel.dist import process_count, sum_over_ranks
 
         xf = _at_least_f32(x)
         n = xf.numel() // xf.shape[1] * process_count()
-        mean = sum_over_ranks(xf.sum(dim=(0, 2, 3))) / n
+        with span("bn.global_sums"):
+            mean = sum_over_ranks(xf.sum(dim=(0, 2, 3))) / n
         centred = xf - mean[None, :, None, None]
-        var = sum_over_ranks(centred.square().sum(dim=(0, 2, 3))) / n
+        with span("bn.global_sums"):
+            var = sum_over_ranks(centred.square().sum(dim=(0, 2, 3))) / n
         if not recompute:
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)

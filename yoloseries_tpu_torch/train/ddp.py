@@ -32,17 +32,30 @@ from torch import nn
 
 from ..nn.layers import BatchNorm
 from ..parallel.dist import all_reduce_mean, all_reduce_sum
+from ..utils.trace import count, span
 
 __all__ = ["GlobalBatch", "PerReplica", "set_sync_bn", "sync_replica_stats"]
 
 
 def _reduce_flat(tensors: list, reduce) -> None:
-    """Reduce a list of tensors in place through one flat buffer."""
+    """Reduce a list of tensors in place through one flat buffer: one
+    packing kernel, the reduction, one unpacking kernel (``_foreach_copy_``,
+    not a copy per tensor)."""
     if not tensors:
         return
     flat = reduce(torch.cat([t.reshape(-1) for t in tensors]))
-    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-        t.copy_(part.view_as(t))
+    torch._foreach_copy_(tensors, [part.view_as(t) for t, part in
+                                   zip(tensors, flat.split([t.numel() for t in tensors]))])
+
+
+def _reduce_grads(grads: list, reduce) -> None:
+    """The update's gradients reduced through one flat buffer, in the span
+    ``ddp.grads`` (its device range anchored by the packing and the
+    unpacking on either side of the collective); the bytes reduced are
+    counted in ``ddp.grad_bytes`` (from the shapes: no sync)."""
+    with span("ddp.grads"):
+        count("ddp.grad_bytes", sum(g.numel() * g.element_size() for g in grads))
+        _reduce_flat(grads, reduce)
 
 
 def _reduce_metrics(metrics: dict, reduce) -> dict:
@@ -58,7 +71,7 @@ class GlobalBatch:
 
     @staticmethod
     def grads(grads: list) -> None:
-        _reduce_flat(grads, all_reduce_sum)
+        _reduce_grads(grads, all_reduce_sum)
 
     @staticmethod
     def balances(balances: torch.Tensor) -> torch.Tensor:
@@ -74,7 +87,7 @@ class PerReplica:
 
     @staticmethod
     def grads(grads: list) -> None:
-        _reduce_flat(grads, all_reduce_mean)
+        _reduce_grads(grads, all_reduce_mean)
 
     @staticmethod
     def balances(balances: torch.Tensor) -> torch.Tensor:

@@ -69,7 +69,7 @@ from ..models import create_model
 from ..ops.metrics import DetectionMetrics
 from ..parallel.dist import all_reduce_sum, process_count, process_index, shard_range
 from ..utils.meters import MeterBuffer
-from ..utils.trace import span, warmup
+from ..utils.trace import count, span, warmup
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .ddp import GlobalBatch, PerReplica, set_sync_bn, sync_replica_stats
 from .optim import _group_schedule
@@ -277,7 +277,12 @@ class Trainer:
         """A batch on the card: uint8 images and f32 targets, or a plan
         batch's fields, rendered there into the images. The first batch of
         each shape (a new pinned buffer, the render's first launches) runs
-        in the span ``warmup.device_batch``."""
+        in the span ``warmup.device_batch``. The host's labels are counted
+        before the copy: ``train.gt_slots`` (images x padded gt slots, the
+        assigner's gt rows) and ``train.gt_boxes`` (the valid boxes)."""
+        ann = batch["ann"]
+        count("train.gt_slots", ann.shape[0] * ann.shape[1])
+        count("train.gt_boxes", int(np.count_nonzero(ann[..., 4] >= 0)))
         key = ("plan", tuple(batch["dst_hw"])) if "plan" in batch else batch["img"].shape
         with warmup("warmup.device_batch", self._batch_shapes, (key, batch["ann"].shape)):
             return self._device_batch_body(batch)
